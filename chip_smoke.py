@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: CIFAR decode at R = 500.
+"""Smoke run of the PyTorch port on one CUDA card: CIFAR decode and encode
+(reference schedule) at R = 500.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -7,20 +8,33 @@ Phases (each prints its seconds; any failure exits non-zero, nothing is
 caught and passed over):
 
 1. the card: name and power limit from nvidia-smi;
-2. build the CUDA kernel (ops/csrc/siren_fwd.cu) with nvcc, print ptxas'
-   register / shared-memory / spill lines;
-3. hold the kernel against its plain PyTorch version on the card: CIFAR
+2. build both CUDA kernels (ops/csrc/siren_fwd.cu, ops/csrc/siren_bwd.cu)
+   with nvcc, one process each, started together; print ptxas' register /
+   shared-memory / spill lines;
+3. hold siren_fwd against its plain PyTorch version on the card: CIFAR
    B = 500, P = 1024 in both launch shapes (one sample per block, the main
    path's, and groups of 8), and B = 3 with P = 1000 (not a multiple of the
    256-pixel tile);
-4. the slice: a CIFAR prior artifact made from --seed by the port's own code
-   (nothing is read from docs/), init_codec at R = 500, random 16-bit
-   indices, decode on the card with the kernel launch count read around it,
-   rows 0-7 compared with the port's decode on the CPU;
-5. timings with CUDA events: the kernel, its plain version, decode
-   datapoints/s and peak device memory;
-6. one decode under torch.profiler: device busy time, idle share and the
-   kernels that take it.
+4. hold siren_bwd against its plain version: CIFAR encode's B = 2,500
+   (R = 500 x S = 5), P = 1024, and B = 3, P = 1000; two launches must be
+   bitwise equal; and siren_fwd at the encode's B = 2,500 in the launch the
+   encode makes (one sample per block);
+5. the decode slice: a CIFAR prior artifact made from --seed by the port's
+   own code (nothing is read from docs/), init_codec at R = 500, random
+   16-bit indices, decode on the card with the launch counts read around
+   it, rows 0-7 compared with the port's decode on the CPU;
+6. the encode slice: progressive.compress at R = 500, S = 5 on images drawn
+   from --seed, cut to ENCODE_PHASE1_EPOCHS phase-1 epochs and
+   ENCODE_FINETUNE_EPOCHS per group so that all 125 groups are coded; the
+   launch counts read around it (siren_bwd once per epoch); the bitstream
+   written, read back and decoded on the card; one encode step on the card
+   compared with the CPU's;
+7. timings with CUDA events: both kernels and their plain versions, decode
+   datapoints/s, the encode epoch (epoch_s), one encode step (code_step_s)
+   and peak device memory;
+8. ten decodes and ten encode epochs under torch.profiler: device busy
+   time, the idle share against the wall time of the same profiled calls,
+   and the kernels that take the time.
 
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -30,28 +44,45 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from recombiner_tpu_torch.coding import encoder, progressive
 from recombiner_tpu_torch.coding.decoder import decode, init_codec
 from recombiner_tpu_torch.config import CIFAR
 from recombiner_tpu_torch.coords import grid_fourier_features
 from recombiner_tpu_torch.device import exact_f32
+from recombiner_tpu_torch.io.bitstream import read_bitstream, write_bitstream
 from recombiner_tpu_torch.io.checkpoint import LevelArtifact, PriorArtifact
+from recombiner_tpu_torch.metrics import metric
+from recombiner_tpu_torch.models.gaussian import Gaussian
 from recombiner_tpu_torch.ops import _build
 from recombiner_tpu_torch.ops import fused_inr
 from recombiner_tpu_torch.priors.grouping import compute_grouping
 
-N_ROWS = 500  # bench.py's CIFAR decode geometry (N_IMAGES)
-# Kernel vs plain version on the card: f32 FMA order differs from cuBLAS's,
-# and w0 = 30 scales each layer's rounding difference by ~30 through three
-# sin layers.
+N_ROWS = 500  # bench.py's CIFAR geometry (N_IMAGES), the reference's cifar test batch
+SAMPLE_SIZE = 5  # cli/compress.py --sample_size default
+# The encode is cut in depth, not in width: the reference schedule's 30,000
+# phase-1 epochs to 40 and its 240-epoch finetunes to 1, so that all 125
+# groups are coded inside the time limit.
+ENCODE_PHASE1_EPOCHS = 40
+ENCODE_FINETUNE_EPOCHS = 1
+# siren_fwd vs plain version on the card: f32 FMA order differs from
+# cuBLAS's, and w0 = 30 scales each layer's rounding difference by ~30
+# through three sin layers.
 ATOL = RTOL = 1e-4
+# siren_bwd vs plain version: max abs diff at most this share of the largest
+# gradient entry. At these inputs the f32 plain version itself differs from
+# an f64 evaluation by about 5e-5 of it.
+BWD_OF_MAX = 2e-4
 # H100 SXM data-sheet peaks (dense): FP32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
@@ -126,6 +157,30 @@ def max_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return err.max().item()
 
 
+def max_err_of_max(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """Max abs diff over the largest entry of ``ref``; raises above BWD_OF_MAX."""
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"bad {what}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    err = (got - ref).abs().max().item()
+    top = ref.abs().max().item()
+    if err > BWD_OF_MAX * top:
+        raise AssertionError(f"siren_bwd disagrees with its plain version in {what}: max abs "
+                             f"diff {err:.3e} against largest entry {top:.3e}")
+    return err
+
+
+def smooth_images(n: int, seed: int) -> np.ndarray:
+    """n CIFAR-sized images (32 x 32 x 3, values in [0.1, 0.9]) from ``seed``:
+    a few random plane waves per channel."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, 32), np.linspace(0, 1, 32), indexing="ij")
+    f = rng.uniform(0.5, 3.0, (n, 3, 2, 2))
+    ph = rng.uniform(0, 2 * np.pi, (n, 3, 2))
+    waves = sum(np.sin(2 * np.pi * (f[..., k, 0, None, None] * xx + f[..., k, 1, None, None] * yy)
+                       + ph[..., k, None, None]) for k in range(2))
+    return (0.5 + 0.2 * waves).transpose(0, 2, 3, 1).astype(np.float32)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -139,16 +194,23 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_by_kernel(fn):
-    """(total device microseconds, {kernel name: microseconds}) of one call
-    of ``fn``, from torch.profiler's CUDA kernel events."""
+def device_time_by_kernel(fn, n: int):
+    """(device microseconds, wall microseconds, {kernel name: device
+    microseconds}) of ``n`` calls of ``fn`` under torch.profiler: device
+    time from its CUDA kernel events, wall time of the same calls between
+    ``torch.cuda.synchronize()`` calls, so both come from one window. A
+    first profiled window, not read, takes the profiler's start-up cost."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(2):
         fn()
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
     by_kernel: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -156,7 +218,7 @@ def device_time_by_kernel(fn):
     total = sum(by_kernel.values())
     if total <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return total, by_kernel
+    return total, wall_us, by_kernel
 
 
 def main(argv=None) -> int:
@@ -177,11 +239,11 @@ def main(argv=None) -> int:
         print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     with phase("build"):
-        built = _build.build("siren_fwd")
-        print(f"nvcc build: {built.seconds:.2f} s -> {built.path}")
-        for line in built.log.splitlines():
-            if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
-                print("  " + line.strip())
+        for name, built in _build.build_all(["siren_fwd", "siren_bwd"]).items():
+            print(f"nvcc build {name}: {built.seconds:.2f} s -> {built.path}")
+            for line in built.log.splitlines():
+                if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
+                    print("  " + line.strip())
 
     art = make_cifar_artifact(args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -203,8 +265,40 @@ def main(argv=None) -> int:
             errs.append(max_err(got, ref3))
             print(f"B=3 P=1000 samples_per_block={spb}: max abs diff {errs[-1]:.3e}")
 
+    B_enc = N_ROWS * SAMPLE_SIZE
+    bwd_errs = []
+    with phase("siren_bwd vs plain version"), exact_f32():
+        xb, thetab = kernel_inputs(art, B_enc, P, gen)
+        dyb = torch.randn(B_enc, P, cfg.output_dim, generator=gen, device="cuda")
+        # the forward at the encode's shape, in the launch SirenMLP makes
+        got = fused_inr.siren_forward(xb, thetab, dims, cfg.w0, samples_per_block=1)
+        torch.cuda.synchronize()
+        errs.append(max_err(got, fused_inr.siren_forward_reference(xb, thetab, dims, cfg.w0)))
+        print(f"siren_fwd B={B_enc} P={P} samples_per_block=1: max abs diff {errs[-1]:.3e} "
+              f"(atol {ATOL}, rtol {RTOL})")
+        cases = [(xb, thetab, dyb)]
+        x3b, theta3b = kernel_inputs(art, 3, 1000, gen)
+        cases.append((x3b, theta3b, torch.randn(3, 1000, cfg.output_dim, generator=gen,
+                                                device="cuda")))
+        for xc, tc, dyc in cases:
+            got = fused_inr.siren_backward(xc, tc, dyc, dims, cfg.w0)
+            again = fused_inr.siren_backward(xc, tc, dyc, dims, cfg.w0)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                raise AssertionError("two siren_bwd launches on the same inputs differ")
+            ref_dx, ref_dtheta = fused_inr.siren_backward_reference(xc, tc, dyc, dims, cfg.w0)
+            e = (max_err_of_max(got[0], ref_dx, "dx"), max_err_of_max(got[1], ref_dtheta, "dtheta"))
+            bwd_errs += e
+            print(f"B={xc.shape[0]} P={xc.shape[1]}: max abs diff dx {e[0]:.3e} (largest "
+                  f"{ref_dx.abs().max().item():.3e}), dtheta {e[1]:.3e} (largest "
+                  f"{ref_dtheta.abs().max().item():.3e}); tolerance {BWD_OF_MAX} of the largest; "
+                  "two launches bitwise equal")
+        # freed here and drawn again for the timings, so that decode's peak
+        # memory below counts what it counted before this phase existed
+        del ref_dx, ref_dtheta, got, again, cases, xb, thetab, dyb
+
     with phase("decode slice"):
-        codec, _ = init_codec(art, N_ROWS)
+        codec, state0 = init_codec(art, N_ROWS)
         rng = np.random.default_rng(args.seed)
         idx = {"w": rng.integers(0, 2**cfg.bits_per_group, (N_ROWS, codec.w.n_groups))}
         feats = torch.from_numpy(grid_fourier_features(cfg.pixel_sizes, cfg.fourier_dim))
@@ -229,6 +323,61 @@ def main(argv=None) -> int:
               f"[{y.min().item():.4f}, {y.max().item():.4f}]")
         if (derr > ATOL + RTOL * y_cpu.abs()).any():
             raise AssertionError("decode on the card disagrees with decode on the CPU")
+
+    with phase("encode slice"):
+        imgs = smooth_images(N_ROWS, args.seed)
+        Y = torch.from_numpy(imgs.reshape(N_ROWS, P, cfg.output_dim)).cuda()
+        gen_enc = torch.Generator(device="cuda").manual_seed(args.seed)
+        torch.cuda.synchronize()
+        for k in fused_inr.launches:
+            fused_inr.launches[k] = 0
+        res = progressive.compress(
+            codec, state0, X, Y, cfg, gen_enc, n_optimize_epochs=ENCODE_PHASE1_EPOCHS,
+            sample_size=SAMPLE_SIZE, finetune_overrides={"w": ENCODE_FINETUNE_EPOCHS})
+        torch.cuda.synchronize()
+        launched_enc = dict(fused_inr.launches)
+        epochs = res.timings["phase1_epochs"] + res.timings["finetune_epochs"]
+        print(f"kernel launches in compress: {launched_enc}; epochs run {epochs} "
+              f"({res.timings['phase1_epochs']} phase 1 + {res.timings['finetune_epochs']} "
+              f"finetune over {codec.w.n_groups} groups); cut from the reference schedule's "
+              f"30000 + {progressive.finetune_epochs(cfg, codec.w.n_groups, 'w')} x "
+              f"{codec.w.n_groups}")
+        if launched_enc["siren_bwd"] != epochs or launched_enc["siren_fwd"] < epochs + 1:
+            raise AssertionError("compress did not launch siren_bwd once per epoch and "
+                                 "siren_fwd once per epoch plus the decode")
+        if not res.state.w.compressed.all():
+            raise AssertionError("compress left groups uncoded")
+        print(f"encode R={N_ROWS} S={SAMPLE_SIZE}: optimize {res.timings['optimize_s']:.3f} s, "
+              f"code {res.timings['code_s']:.3f} s, mean PSNR {np.mean(res.distortion):.4f} dB "
+              f"@ {res.bitrate:.4f} bpp [{card}]")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "bitstream_test_id_0.rctb")
+            nbytes = write_bitstream(path, res.indices, config_name=cfg.name,
+                                     codebook_seed=art.codebook_seed,
+                                     codebook_kind=art.codebook_kind,
+                                     bits_per_group=cfg.bits_per_group)
+            _, idx_back = read_bitstream(path)
+        y_back = decode(codec, idx_back, X, cfg).cpu().numpy()
+        dist_back = metric(imgs.reshape(N_ROWS, P, cfg.output_dim), y_back, cfg.name)
+        rec_err = float(np.abs(y_back - res.reconstruction).max())
+        print(f"bitstream {nbytes} bytes, read back and decoded on the card: reconstruction max "
+              f"abs diff {rec_err:.3e} to compress's, PSNR max diff "
+              f"{np.abs(dist_back - res.distortion).max():.3e} dB (tolerance 1e-6 both)")
+        if not np.isfinite(y_back).all() or rec_err > 1e-6 or (
+                np.abs(dist_back - res.distortion).max() > 1e-6):
+            raise AssertionError("the decoded bitstream does not reproduce compress's result")
+        # one encode step on the card against the CPU's, from one state
+        steps = []
+        for dev in ("cuda", "cpu"):
+            c8, s8 = init_codec(art, 8, device=dev)
+            g8 = torch.Generator().manual_seed(args.seed)
+            loc = s8.w.q.loc + 0.01 * torch.randn(s8.w.q.loc.shape, generator=g8).to(dev)
+            s8 = dataclasses.replace(s8, w=dataclasses.replace(s8.w, q=Gaussian(
+                loc, s8.w.q.log_scale)))
+            steps.append(encoder.encode_step(c8, s8).w.indices.cpu())
+        if not torch.equal(steps[0], steps[1]):
+            raise AssertionError("encode_step on the card picks other samples than on the CPU")
+        print("encode_step rows 0-7, card vs CPU: indices equal")
 
     with phase("timing"), exact_f32():
         ms = {spb: cuda_ms(lambda: fused_inr.siren_forward(x, theta, dims, cfg.w0, spb), 50)
@@ -257,12 +406,69 @@ def main(argv=None) -> int:
         print(f"decode R={N_ROWS}: {dec_s * 1e3:.3f} ms, {N_ROWS / dec_s:.1f} datapoints/s, "
               f"peak device memory {peak / 2**20:.1f} MiB [{card}]")
 
+        xb, thetab = kernel_inputs(art, B_enc, P, gen)
+        dyb = torch.randn(B_enc, P, cfg.output_dim, generator=gen, device="cuda")
+        bwd_ms = cuda_ms(lambda: fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0), 10)
+        bwd_plain_ms = cuda_ms(
+            lambda: fused_inr.siren_backward_reference(xb, thetab, dyb, dims, cfg.w0), 3, 1)
+        # multiply-adds per pixel: the forward recompute (it stops before the
+        # last layer, whose dz is dy), then dW and da for every layer
+        macs = [dims[i] * dims[i + 1] for i in range(len(dims) - 1)]
+        bwd_flops = 2 * B_enc * P * (sum(macs[:-1]) + 2 * sum(macs))
+        bwd_bytes = 4 * (2 * xb.numel() + 2 * thetab.numel() + dyb.numel())
+        bwd_bound_ms = 1e3 * max(bwd_flops / PEAK_FP32_FLOPS, bwd_bytes / PEAK_BYTES_S)
+        bwd_bound_by = ("operations" if bwd_flops / PEAK_FP32_FLOPS >= bwd_bytes / PEAK_BYTES_S
+                        else "bytes")
+        print(f"siren_bwd B={B_enc} P={P}: {bwd_ms:.4f} ms ({bwd_flops / bwd_ms / 1e9:.2f} "
+              f"TFLOP/s); plain version (torch.bmm chain) {bwd_plain_ms:.4f} ms; bound "
+              f"{bwd_bound_ms:.4f} ms by {bwd_bound_by} ({bwd_flops / 1e9:.3f} GFLOP, "
+              f"{bwd_bytes / 1e6:.2f} MB) [{card}]")
+        del xb, thetab, dyb
+
+        # S = 5 epochs at R = 500 from the fresh state, as phase 1 runs them
+        def epochs(n):
+            return encoder.optimize(codec, state0, X, Y, cfg, gen_enc, n_epochs=n,
+                                    sample_size=SAMPLE_SIZE)
+
+        epochs(2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        epochs(10)
+        torch.cuda.synchronize()
+        epoch_s = (time.perf_counter() - t0) / 10
+        epoch_peak = torch.cuda.max_memory_allocated()
+        encoder.encode_step(codec, state0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            encoder.encode_step(codec, state0)
+        torch.cuda.synchronize()
+        code_step_s = (time.perf_counter() - t0) / 5
+        print(f"epoch_s {epoch_s:.6f} (R={N_ROWS}, S={SAMPLE_SIZE}, mean of 10 warm epochs), "
+              f"peak device memory {epoch_peak / 2**20:.1f} MiB; code_step_s {code_step_s:.6f} "
+              f"(one encode_step, mean of 5) [{card}]")
+
+    n_prof = 10
     with phase("decode profile"):
-        busy_us, by_kernel = device_time_by_kernel(lambda: decode(codec, idx, X, cfg))
-        print(f"decode R={N_ROWS} on the device: {busy_us / 1e3:.3f} ms busy of "
-              f"{dec_s * 1e3:.3f} ms wall, idle share {1 - busy_us / 1e3 / (dec_s * 1e3):.3f}")
+        busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: decode(codec, idx, X, cfg),
+                                                            n_prof)
+        print(f"decode R={N_ROWS}, {n_prof} decodes under the profiler: "
+              f"{busy_us / 1e3 / n_prof:.3f} ms device time per decode in "
+              f"{wall_us / 1e3 / n_prof:.3f} ms wall of the same decodes, idle share "
+              f"{1 - busy_us / wall_us:.4f} (unprofiled decode {dec_s * 1e3:.3f} ms)")
         for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
-            print(f"  {us / 1e3:8.4f} ms {100 * us / busy_us:5.1f}%  {name[:110]}")
+            print(f"  {us / 1e3 / n_prof:8.4f} ms/decode {100 * us / busy_us:5.1f}%  {name[:100]}")
+
+    with phase("epoch profile"):
+        busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: epochs(1), n_prof)
+        epoch_idle = 1 - busy_us / wall_us
+        print(f"encode R={N_ROWS} S={SAMPLE_SIZE}, {n_prof} epochs under the profiler: "
+              f"{busy_us / 1e3 / n_prof:.3f} ms device time per epoch in "
+              f"{wall_us / 1e3 / n_prof:.3f} ms wall of the same epochs, idle share "
+              f"{epoch_idle:.4f} (unprofiled epoch_s {epoch_s * 1e3:.3f} ms)")
+        for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
+            print(f"  {us / 1e3 / n_prof:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name[:100]}")
 
     kernels = [{
         "name": "siren_fwd",
@@ -271,7 +477,8 @@ def main(argv=None) -> int:
         "replaces": "recombiner_tpu/ops/fused_inr.py:52",
         "also_replaces": "recombiner_tpu/ops/pallas_inr.py:40",
         "held_against": "recombiner_tpu_torch/ops/fused_inr.py::siren_forward_reference",
-        "launches": launched["siren_fwd"],
+        "launches": launched_enc["siren_fwd"],
+        "launches_by_path": {"decode": launched["siren_fwd"], "encode": launched_enc["siren_fwd"]},
         "max_abs_err": max(errs),
         "ms": ms[1],
         "ms_8_samples_per_block": ms[8],
@@ -279,10 +486,28 @@ def main(argv=None) -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "siren_bwd",
+        "route": "cuda",
+        "source": "recombiner_tpu_torch/ops/csrc/siren_bwd.cu",
+        "replaces": "recombiner_tpu/ops/fused_inr.py:67",
+        "held_against": "recombiner_tpu_torch/ops/fused_inr.py::siren_backward_reference",
+        "launches": launched_enc["siren_bwd"],
+        "launches_by_path": {"decode": launched["siren_bwd"], "encode": launched_enc["siren_bwd"]},
+        "max_abs_err": max(bwd_errs),
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+        "bound_ms": bwd_bound_ms,
+        "bound_by": bwd_bound_by,
+        "library_ms": None,
     }]
     print("kernels: siren_fwd (CUDA, replaces recombiner_tpu/ops/fused_inr.py::_fwd_kernel and "
           "recombiner_tpu/ops/pallas_inr.py::_kernel), held against siren_forward_reference "
-          f"at atol {ATOL} rtol {RTOL}")
+          f"at atol {ATOL} rtol {RTOL}; siren_bwd (CUDA, replaces "
+          "recombiner_tpu/ops/fused_inr.py::_bwd_kernel), held against siren_backward_reference "
+          f"at {BWD_OF_MAX} of the largest gradient entry")
+    print(f"encode: epoch_s {epoch_s:.6f}, code_step_s {code_step_s:.6f}, epoch peak memory "
+          f"{epoch_peak / 2**20:.1f} MiB, epoch idle share {epoch_idle:.4f} [{card}]")
     print(f"total: {time.perf_counter() - t_all:.2f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
-"""Decoder: transmitted indices -> reconstruction, the receiving half of
+"""Codec context, rendering and decode: the receiving half of
 ``recombiner_tpu/coding/encoder.py`` (lines 56-130, 136-266, 269-329 and
-932-1004).
+932-1004), plus the sampling form of ``predict`` that the sender's half
+(``coding/encoder.py``) optimises through.
 
 Decode is deterministic given the indices: every cell is frozen at its
 decoded codebook sample with zero scale, so the result matches the JAX
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from recombiner_tpu_torch.coding.codebook import make_codebook
+from recombiner_tpu_torch.coding.gumbel import gumbel_chain
 from recombiner_tpu_torch.config import ModalityConfig
 from recombiner_tpu_torch.device import DeviceLike, exact_f32, resolve_device
 from recombiner_tpu_torch.io.checkpoint import LevelArtifact, PriorArtifact
@@ -43,8 +45,11 @@ class LevelMeta:
     group_start: torch.Tensor  # (G,) coded offsets
     group_size: torch.Tensor  # (G,)
     group_idx: torch.Tensor  # (D,) coded position -> group id
+    param2group: torch.Tensor  # (D,) coded position -> param index
     group2param: torch.Tensor  # (D,) param index -> coded position
+    group_of_col: torch.Tensor  # (D,) param index -> group id
     eps: torch.Tensor  # (n_samples, Gmax) codebook
+    gumbel: torch.Tensor  # (n_samples,) A* perturbations, bitstream format
     D: int
     Dpad: int
     Gmax: int
@@ -91,7 +96,7 @@ def _round_up(x: int, m: int = 128) -> int:
 
 
 def _make_level_meta(lv: LevelArtifact, level_name: str, codebook_seed: int,
-                     bits_per_group: int, codebook_kind: str,
+                     gumbel_seed: int, bits_per_group: int, codebook_kind: str,
                      device: torch.device) -> LevelMeta:
     g = lv.grouping
     D = g.n_params
@@ -102,7 +107,8 @@ def _make_level_meta(lv: LevelArtifact, level_name: str, codebook_seed: int,
     p_scale = np.ones(Dpad, np.float32)
     p_loc[:D] = lv.p_loc[p2g]
     p_scale[:D] = lv.p_scale[p2g]
-    eps = make_codebook(codebook_seed, level_name, 2**bits_per_group, Gmax, codebook_kind)
+    n_samples = 2**bits_per_group
+    eps = make_codebook(codebook_seed, level_name, n_samples, Gmax, codebook_kind)
 
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
@@ -114,8 +120,11 @@ def _make_level_meta(lv: LevelArtifact, level_name: str, codebook_seed: int,
         group_start=i64(g.group_start),
         group_size=i64(g.group_sizes),
         group_idx=i64(g.group_idx),
+        param2group=i64(p2g),
         group2param=i64(g.group2param),
+        group_of_col=i64(g.group_idx[g.group2param]),
         eps=f32(eps),
+        gumbel=f32(gumbel_chain(n_samples, gumbel_seed)),
         D=D,
         Dpad=Dpad,
         Gmax=Gmax,
@@ -152,8 +161,8 @@ def init_codec(artifact: PriorArtifact, n_rows: int, codebook_kind: Optional[str
     dev = resolve_device(device)
     beta = artifact.kl_beta if initial_beta is None else initial_beta
     kind = artifact.codebook_kind if codebook_kind is None else codebook_kind
-    w_meta = _make_level_meta(artifact.w, "w", artifact.codebook_seed, cfg.bits_per_group,
-                              kind, dev)
+    seed = artifact.codebook_seed
+    w_meta = _make_level_meta(artifact.w, "w", seed, seed, cfg.bits_per_group, kind, dev)
     A, up = torch_params_from_artifact(artifact, dev)
     codec = Codec(w=w_meta, h=None, hh=None, A=tuple(A), up=up)
     state = CodecState(w=_init_level_state(artifact.w, w_meta, n_rows, beta), h=None, hh=None)
@@ -211,23 +220,43 @@ def decode_state(codec: Codec, indices: Dict[str, object], cfg: ModalityConfig) 
     return CodecState(w=w, h=None, hh=None)
 
 
-def predict(codec: Codec, state: CodecState, X: torch.Tensor,
-            cfg: ModalityConfig) -> torch.Tensor:
-    """Render the INR at the posterior means: X (R, P, fourier_dim) ->
-    (R, 1, P, out_dim). Deterministic: the noise is zero, which is exact for
-    a fully frozen state (every scale is zero). The sampling form that
-    encoding needs comes with the encode slice."""
+Noise = Tuple[torch.Tensor, torch.Tensor]
+
+
+def predict(codec: Codec, state: CodecState, X: torch.Tensor, cfg: ModalityConfig,
+            sample_size: int = 1, generator: Optional[torch.Generator] = None,
+            noise: Optional[Noise] = None) -> torch.Tensor:
+    """Render the INR from the current (partially coded) posteriors:
+    X (R, P, fourier_dim) -> (R, S, P, out_dim), S = ``sample_size``.
+
+    The standard-normal noise is ``noise`` = (LPE noise (R, S, *lpe_spatial,
+    latent_dim), weight noise (R, S, n_inr_params)) when given (the tests
+    replay the JAX package's draws through it); else drawn from
+    ``generator`` in that order, as the JAX package splits its key
+    (``encoder.py:280-329``, ``models/mappings.py:130-152``); else zero,
+    which renders the posterior means and is exact for a fully frozen state
+    (every scale is zero): the decode form."""
     if cfg.patch:
         raise NotImplementedError(_PATCH_TODO)
     loc, scale = _effective(state.w)
     n_inr = cfg.n_inr_params
     R, D = loc.shape
-    eps = torch.zeros(R, 1, D, device=loc.device)
-    lpe = loc[:, None, n_inr:] + scale[:, None, n_inr:] * eps[:, :, n_inr:]
-    lpe = lpe.reshape(R, 1, *cfg.lpe_spatial, cfg.latent_dim)
+    S = sample_size
+    dev = loc.device
+    if noise is not None:
+        lpe_eps, w_eps = (torch.as_tensor(n, dtype=torch.float32, device=dev) for n in noise)
+    elif generator is not None:
+        lpe_eps = torch.randn(R, S, *cfg.lpe_spatial, cfg.latent_dim, generator=generator,
+                              device=dev)
+        w_eps = torch.randn(R, S, n_inr, generator=generator, device=dev)
+    else:
+        lpe_eps = torch.zeros(R, S, D - n_inr, device=dev)
+        w_eps = torch.zeros(R, S, n_inr, device=dev)
+    lpe = loc[:, None, n_inr:] + scale[:, None, n_inr:] * lpe_eps.reshape(R, S, D - n_inr)
+    lpe = lpe.reshape(R, S, *cfg.lpe_spatial, cfg.latent_dim)
     pe = lpe_to_pe(codec.up, lpe, cfg)
     x = torch.cat([X[:, None].expand(*pe.shape[:3], X.shape[-1]), pe], -1)
-    h_w = sample_hierarchical_latents(loc[:, :n_inr], scale[:, :n_inr], eps[:, :, :n_inr], cfg)
+    h_w = sample_hierarchical_latents(loc[:, :n_inr], scale[:, :n_inr], w_eps, cfg)
     return inr_forward_fused(x, h_w, codec.A, cfg)
 
 

@@ -1,0 +1,251 @@
+"""The sender's half of ``recombiner_tpu/coding/encoder.py``: per-datapoint
+posterior optimisation (the MC-ELBO with per-group KL annealing, Adam) and
+one step of progressive A* coding, non-patch configs.
+
+The codec context, the state classes and ``predict`` live in
+``coding/decoder.py``; this module changes a ``CodecState`` and returns a
+new one. Posteriors stay in PHYSICAL (param-order) layout, so the
+differentiated path has no gathers; the coded (group-order) view is taken
+forward-only, through ``param2group``.
+
+Determinism: group KLs are summed over a padded (R, G, Gmax) window with a
+mask, not with ``index_add_``/``scatter_add_`` (atomics on CUDA), and the
+SIREN chain's gradient comes from ``siren_bwd``, whose sums run in a fixed
+order, so an encode on one card repeats bit for bit given the generator.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from recombiner_tpu_torch.coding.decoder import (
+    Codec,
+    CodecState,
+    LevelMeta,
+    LevelState,
+    Noise,
+    predict,
+)
+from recombiner_tpu_torch.config import ModalityConfig
+from recombiner_tpu_torch.device import exact_f32
+from recombiner_tpu_torch.models.gaussian import Gaussian, kl_gaussian, scale_transform
+
+LOG2 = math.log(2.0)
+KL_ADJUST_GAP = 10  # epochs between beta annealing steps (encoder.py:487)
+
+
+# ------------------------------------------------------------------- KL
+
+
+def level_kl(ls: LevelState, meta: LevelMeta) -> torch.Tensor:
+    """Elementwise KL(q || p) in physical layout: (R, D), nats."""
+    return kl_gaussian(ls.q.loc, scale_transform(ls.q.log_scale), meta.pp_loc, meta.pp_scale)
+
+
+def _to_coded(x: torch.Tensor, meta: LevelMeta) -> torch.Tensor:
+    """Physical (R, D) -> coded layout (R, D): coded column c reads physical
+    column param2group[c] (non-patch: no row mixing)."""
+    return x.index_select(1, meta.param2group)
+
+
+def _group_windows(meta: LevelMeta, groups: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coded columns of each group in ``groups`` padded to Gmax: (columns,
+    clamped into [0, D); valid lanes), each (*groups.shape, Gmax)."""
+    lane = torch.arange(meta.Gmax, device=groups.device)
+    cols = meta.group_start[groups][..., None] + lane
+    valid = lane < meta.group_size[groups][..., None]
+    return cols.clamp(max=meta.D - 1), valid
+
+
+def group_kl(ls: LevelState, meta: LevelMeta) -> torch.Tensor:
+    """Per-(row, group) KL in nats, (R, G). Groups are contiguous in coded
+    order, so each is a masked sum over its padded window: a fixed order,
+    no atomics."""
+    kl = _to_coded(level_kl(ls, meta), meta)
+    cols, valid = _group_windows(meta, torch.arange(meta.n_groups, device=kl.device))
+    return torch.where(valid, kl[:, cols], 0.0).sum(-1)
+
+
+def beta_weighted_kl(ls: LevelState, meta: LevelMeta) -> torch.Tensor:
+    """sum over cells of beta[owning group] * KL(cell); no gradient flows
+    through beta."""
+    return (level_kl(ls, meta) * ls.kl_beta.detach()[:, meta.group_of_col]).sum()
+
+
+def update_betas(ls: LevelState, meta: LevelMeta, bits_per_group: float,
+                 upper_buffer: float = 0.0, lower_buffer: float = 0.4,
+                 step: float = 0.05) -> LevelState:
+    """Per-group multiplicative beta annealing toward the bit budget; coded
+    groups keep their beta."""
+    with torch.no_grad():
+        kls_bits = group_kl(ls, meta) / LOG2
+        beta = ls.kl_beta
+        beta = beta * torch.where(kls_bits > bits_per_group + upper_buffer, 1.0 + step, 1.0)
+        beta = beta / torch.where(kls_bits <= bits_per_group - lower_buffer, 1.0 + step, 1.0)
+        beta = torch.clamp(beta, 0.0, 10000.0)
+        beta = torch.where(ls.compressed, ls.kl_beta, beta)
+    return dataclasses.replace(ls, kl_beta=beta)
+
+
+# ------------------------------------------------------------ optimisation
+
+
+def elbo_loss(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
+              cfg: ModalityConfig, sample_size: int,
+              generator: Optional[torch.Generator] = None,
+              noise: Optional[Noise] = None) -> torch.Tensor:
+    """The MC-ELBO of ``_elbo_loss_fn``: mean squared error times the number
+    of rows, plus the beta-weighted KL."""
+    y_hat = predict(codec, state, X, cfg, sample_size, generator=generator, noise=noise)
+    mse = torch.mean((y_hat - Y[:, None]) ** 2) * Y.shape[0]
+    return mse + beta_weighted_kl(state.w, codec.w)
+
+
+@dataclasses.dataclass
+class AdamState:
+    """optax's ``ScaleByAdamState``: the step count and the two moments, one
+    tensor per parameter (here [loc, log_scale])."""
+
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+LearningRate = Union[float, Callable[[int], float]]
+
+
+def adam_init(params: Sequence[torch.Tensor]) -> AdamState:
+    return AdamState(0, [torch.zeros_like(p) for p in params],
+                     [torch.zeros_like(p) for p in params])
+
+
+def cosine_lr(peak: float, floor: float, total: int) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule(peak, total, alpha=floor/peak) in f32:
+    peak down to floor over ``total`` steps, then floor."""
+    alpha = np.float32(float(floor) / float(peak))
+
+    def lr(count: int) -> float:
+        c = np.float32(min(count, total))
+        decay = np.float32(0.5) * (np.float32(1)
+                                   + np.cos(np.float32(np.pi) * c / np.float32(total)))
+        return float(np.float32(peak) * ((np.float32(1) - alpha) * decay + alpha))
+
+    return lr
+
+
+def adam_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], st: AdamState,
+              lr: LearningRate, b1: float = 0.9, b2: float = 0.999,
+              eps: float = 1e-8) -> AdamState:
+    """One Adam step with optax's semantics (``optax.adam``, or its chain with
+    ``scale_by_schedule`` when ``lr`` is a schedule of the step count):
+    bias-corrected moments, eps outside the square root. Updates ``params``
+    in place (they are the optimised leaves; in place saves a copy of the
+    posterior per epoch) and returns the new state."""
+    count = st.count + 1
+    bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+    bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+    step = lr(st.count) if callable(lr) else lr
+    mu, nu = [], []
+    with torch.no_grad():
+        for p, g, m, v in zip(params, grads, st.mu, st.nu):
+            m = (1 - b1) * g + b1 * m
+            v = (1 - b2) * (g * g) + b2 * v
+            p.add_(-(step * ((m / bc1) / (torch.sqrt(v / bc2) + eps))))
+            mu.append(m)
+            nu.append(v)
+    return AdamState(count, mu, nu)
+
+
+def optimize(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
+             cfg: ModalityConfig, generator: torch.Generator, *, n_epochs: int,
+             lr: LearningRate = 2e-4, sample_size: int = 5) -> CodecState:
+    """MC-ELBO posterior optimisation with beta annealing, in the order of
+    ``encoder.py:487-569``: each epoch takes the gradient first, then anneals
+    the betas when ``i % KL_ADJUST_GAP == 0`` (``i`` restarts at 0 in each
+    call), then takes the step of a fresh Adam. Fresh noise per epoch from
+    ``generator``. Runs in exact f32 (TF32 off in cuBLAS and cuDNN): the
+    port's one precision."""
+    if cfg.patch:
+        raise NotImplementedError("patch configs are not ported yet (ROADMAP.md, port "
+                                  "queue: patch / kodak_mini)")
+    ls = state.w
+    params = [ls.q.loc.detach().clone().requires_grad_(),
+              ls.q.log_scale.detach().clone().requires_grad_()]
+    opt_state = adam_init(params)
+    with exact_f32():
+        for i in range(n_epochs):
+            ls = dataclasses.replace(ls, q=Gaussian(*params))
+            loss = elbo_loss(codec, CodecState(w=ls, h=None, hh=None), X, Y, cfg, sample_size,
+                             generator=generator)
+            grads = torch.autograd.grad(loss, params)
+            if i % KL_ADJUST_GAP == 0:
+                ls = update_betas(ls, codec.w, cfg.bits_per_group)
+            opt_state = adam_step(params, grads, opt_state, lr)
+    ls = dataclasses.replace(ls, q=Gaussian(params[0].detach(), params[1].detach()))
+    return CodecState(w=ls, h=None, hh=None)
+
+
+# ----------------------------------------------------------- encode step
+
+
+def encode_step_level(ls: LevelState, meta: LevelMeta) -> LevelState:
+    """Code one group per row, all rows at once: pick each row's max-KL
+    uncoded group, A*-score it against the shared codebook through the
+    [eps^2, eps] matmul basis (in exact f32), freeze the winning sample.
+
+    log q(z) - log p(z) at z = p_loc + p_scale * eps is alpha * eps^2 +
+    beta * eps + const; the constant does not move the argmax. Rows whose
+    groups are all coded are left as they are."""
+    R, Gmax = ls.q.loc.shape[0], meta.Gmax
+    with torch.no_grad():
+        kls = group_kl(ls, meta) / LOG2
+        kls = kls.masked_fill(ls.compressed, -math.inf)
+        g = torch.argmax(kls, dim=1)  # first maximum, as jnp.argmax
+        cols, valid = _group_windows(meta, g)  # (R, Gmax)
+        d_cols = meta.param2group[cols]
+        start = meta.group_start[g][:, None]
+        win = start + torch.arange(Gmax, device=g.device)  # < Dpad: the prior is padded
+        q_loc = torch.gather(ls.q.loc, 1, d_cols)
+        q_scale = scale_transform(torch.gather(ls.q.log_scale, 1, d_cols))
+        p_loc, p_scale = meta.p_loc[win], meta.p_scale[win]
+
+        inv_q2 = 1.0 / (q_scale * q_scale)
+        delta = p_loc - q_loc
+        alpha = torch.where(valid, 0.5 * (1.0 - p_scale * p_scale * inv_q2), 0.0)
+        beta = torch.where(valid, -delta * p_scale * inv_q2, 0.0)
+        with exact_f32():
+            scores = ((meta.eps * meta.eps) @ alpha.T + meta.eps @ beta.T
+                      + meta.gumbel[:, None])
+        idx = torch.argmax(scores, dim=0)  # (R,)
+        z = p_loc + p_scale * meta.eps[idx]
+
+        active = ~ls.compressed.all(dim=1)
+        write = valid & active[:, None]
+        rows = torch.arange(R, device=g.device)[:, None].expand(R, Gmax)
+        # valid lanes only: distinct cells, so the scatter has no duplicates
+        r_w, c_w = rows[write], d_cols[write]
+        frozen_val = ls.frozen_val.clone()
+        frozen_mask = ls.frozen_mask.clone()
+        frozen_val[r_w, c_w] = z[write]
+        frozen_mask[r_w, c_w] = 1.0
+        coded = active[:, None] & (torch.arange(meta.n_groups, device=g.device) == g[:, None])
+    return dataclasses.replace(
+        ls,
+        frozen_val=frozen_val,
+        frozen_mask=frozen_mask,
+        kl_beta=torch.where(coded, 0.0, ls.kl_beta),
+        compressed=ls.compressed | coded,
+        indices=torch.where(coded, idx[:, None], ls.indices),
+    )
+
+
+def encode_step(codec: Codec, state: CodecState, level: str = "w") -> CodecState:
+    if level != "w":
+        raise NotImplementedError("levels h and hh come with the patch configs (ROADMAP.md, "
+                                  "port queue: patch / kodak_mini)")
+    return dataclasses.replace(state, w=encode_step_level(state.w, codec.w))

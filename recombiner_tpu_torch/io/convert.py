@@ -1,7 +1,10 @@
-"""Carry an artifact's learned mappings across into the port's tensors."""
+"""Carry the JAX package's artifacts, codec states and codebooks across into
+the port's tensors. Everything arrives as numpy (``np.asarray`` of a JAX
+array, or an array read from disk), so nothing here imports JAX."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -27,3 +30,49 @@ def torch_params_from_artifact(art, device: DeviceLike = None) -> Tuple[List[tor
             "b": torch.tensor(np.asarray(conv["b"], np.float32), device=dev),
         }
     return A, up
+
+
+def level_state_from(ls, device: DeviceLike = None):
+    """A level state of either package (``q.loc``, ``q.log_scale``,
+    ``frozen_mask``, ``frozen_val``, ``kl_beta``, ``compressed``,
+    ``indices``) -> the port's ``LevelState`` on ``device``."""
+    from recombiner_tpu_torch.coding.decoder import LevelState
+    from recombiner_tpu_torch.models.gaussian import Gaussian
+
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    return LevelState(
+        q=Gaussian(loc=f32(ls.q.loc), log_scale=f32(ls.q.log_scale)),
+        frozen_mask=f32(ls.frozen_mask),
+        frozen_val=f32(ls.frozen_val),
+        kl_beta=f32(ls.kl_beta),
+        compressed=torch.tensor(np.asarray(ls.compressed, bool), device=dev),
+        indices=torch.tensor(np.asarray(ls.indices, np.int64), device=dev),
+    )
+
+
+def codec_state_from(state, device: DeviceLike = None):
+    """A (non-patch) codec state of either package -> the port's ``CodecState``."""
+    from recombiner_tpu_torch.coding.decoder import CodecState
+
+    if state.h is not None:
+        raise NotImplementedError("patch configs are not ported yet (ROADMAP.md, port "
+                                  "queue: patch / kodak_mini)")
+    return CodecState(w=level_state_from(state.w, device), h=None, hh=None)
+
+
+def with_codebook(codec, meta):
+    """``codec`` with level w's codebook (``eps``) and Gumbel chain taken from
+    ``meta`` (a level meta of either package), so both packages code against
+    identical samples."""
+    w = codec.w
+    dev = w.eps.device
+    eps = torch.tensor(np.asarray(meta.eps, np.float32), device=dev)
+    gumbel = torch.tensor(np.asarray(meta.gumbel, np.float32), device=dev)
+    if eps.shape != w.eps.shape or gumbel.shape != w.gumbel.shape:
+        raise ValueError(f"codebook {tuple(eps.shape)} / {tuple(gumbel.shape)} does not "
+                         f"match {tuple(w.eps.shape)} / {tuple(w.gumbel.shape)}")
+    return dataclasses.replace(codec, w=dataclasses.replace(w, eps=eps, gumbel=gumbel))

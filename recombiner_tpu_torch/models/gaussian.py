@@ -1,5 +1,5 @@
-"""Posterior scale transform (``recombiner_tpu/models/gaussian.py:20-22``) and
-the diagonal Gaussian posterior it parameterises."""
+"""Posterior scale transform (``recombiner_tpu/models/gaussian.py:20-22``),
+the diagonal Gaussian posterior it parameterises, and the Gaussian KL."""
 
 from __future__ import annotations
 
@@ -27,3 +27,12 @@ class Gaussian:
     @property
     def scale(self) -> torch.Tensor:
         return scale_transform(self.log_scale)
+
+
+def kl_gaussian(q_loc: torch.Tensor, q_scale: torch.Tensor, p_loc: torch.Tensor,
+                p_scale: torch.Tensor) -> torch.Tensor:
+    """Elementwise KL( N(q_loc, q_scale) || N(p_loc, p_scale) ) in nats
+    (``recombiner_tpu/models/gaussian.py:60``)."""
+    var_ratio = (q_scale / p_scale) ** 2
+    t = ((q_loc - p_loc) / p_scale) ** 2
+    return 0.5 * (var_ratio + t - 1.0 - torch.log(var_ratio))

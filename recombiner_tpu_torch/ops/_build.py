@@ -65,34 +65,54 @@ def _source(name: str) -> str:
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless this source and these flags are
     already built; returns the library path, build seconds and nvcc's log."""
+    return build_all([name])[name]
+
+
+def build_all(names: List[str]) -> Dict[str, Built]:
+    """``build`` for several sources, one nvcc each, all started together."""
     with _lock:
-        if name in _built:
-            return _built[name]
-        src = _source(name)
-        with open(src, "rb") as f:
-            tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        so = os.path.join(BUILD_DIR, f"lib{name}-{tag}.so")
-        if os.path.exists(so):
-            _built[name] = Built(so, 0.0, "")
-            return _built[name]
-        nvcc = find_nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd: List[str] = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
-        t0 = time.perf_counter()
-        try:
-            res = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
-        except subprocess.TimeoutExpired as e:
-            raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s building {src}") from e
-        seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}) building {src}:\n{log}")
-        os.replace(tmp, so)
-        _built[name] = Built(so, seconds, log)
-        return _built[name]
+        todo = {}
+        for name in names:
+            if name in _built:
+                continue
+            src = _source(name)
+            with open(src, "rb") as f:
+                tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+            so = os.path.join(BUILD_DIR, f"lib{name}-{tag}.so")
+            if os.path.exists(so):
+                _built[name] = Built(so, 0.0, "")
+            else:
+                todo[name] = (src, so, f"{so}.{os.getpid()}.tmp")
+        if todo:
+            nvcc = find_nvcc()
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            t0 = time.perf_counter()
+            procs = {name: subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True)
+                     for name, (src, _, tmp) in todo.items()}
+            try:
+                for name, proc in procs.items():
+                    src, so, tmp = todo[name]
+                    try:
+                        log = proc.communicate(
+                            timeout=max(BUILD_TIMEOUT_S - (time.perf_counter() - t0), 0.1))[0]
+                    except subprocess.TimeoutExpired as e:
+                        raise RuntimeError(
+                            f"nvcc timed out after {BUILD_TIMEOUT_S} s building {src}") from e
+                    if proc.returncode != 0:
+                        raise RuntimeError(
+                            f"nvcc failed ({proc.returncode}) building {src}:\n{log}")
+                    os.replace(tmp, so)
+                    _built[name] = Built(so, time.perf_counter() - t0, log)
+            finally:
+                for name, proc in procs.items():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                    if os.path.exists(todo[name][2]):
+                        os.remove(todo[name][2])
+        return {name: _built[name] for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,11 +1,14 @@
-"""Per-sample SIREN forward through a hand-written CUDA kernel.
+"""Per-sample SIREN forward and backward through hand-written CUDA kernels.
 
-Replaces the TPU kernels ``recombiner_tpu/ops/fused_inr.py::_fwd_kernel``
+The forward replaces the TPU kernels ``recombiner_tpu/ops/fused_inr.py::_fwd_kernel``
 (sample groups x pixel tiles) and ``recombiner_tpu/ops/pallas_inr.py::_kernel``
 (one sample per program): both become launches of one CUDA kernel,
 ``ops/csrc/siren_fwd.cu``, with ``samples_per_block`` samples per block and
-256 pixels per block (one pixel per thread). The backward kernel
-(``_bwd_kernel``) serves encode and is not ported yet.
+256 pixels per block (one pixel per thread). The backward replaces
+``recombiner_tpu/ops/fused_inr.py::_bwd_kernel`` with ``ops/csrc/siren_bwd.cu``
+(one block per sample, the forward recomputed on chip, dW/db summed over
+pixel tiles in a fixed order), wired into autograd by ``SirenMLP`` as the
+JAX package's ``custom_vjp`` wires its pair.
 
 Bound on the H100: operations. At CIFAR decode (B = 500, P = 1024) the chain
 is 3.24 GFLOP of FP32 FMA, about 48 us at 67 TFLOP/s, against 78 MB of
@@ -14,17 +17,19 @@ intermediate activation in registers and each sample's weights in shared
 memory, so only x, the weights and y touch device memory.
 
 The learned A-transform stays a dense ``torch.matmul`` (cuBLAS), as the JAX
-package left it to XLA. ``siren_forward`` launches the kernel for CUDA
-tensors and runs ``siren_forward_reference``, the plain PyTorch version of
-the same function, only for CPU tensors.
+package left it to XLA, and autograd carries dtheta back through it.
+``siren_forward`` and ``siren_backward`` launch their kernels for CUDA
+tensors and run ``siren_forward_reference`` / ``siren_backward_reference``,
+the plain PyTorch versions of the same functions, only for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from recombiner_tpu_torch.config import ModalityConfig
 from recombiner_tpu_torch.models.inr import latent_to_weights, slice_layer
@@ -34,8 +39,8 @@ MAX_WIDTH = 64  # SIREN_MAX_WIDTH in siren_fwd.cu
 MAX_LAYERS = 8  # SIREN_MAX_LAYERS
 PIXELS_PER_BLOCK = 256  # SIREN_THREADS
 
-# Launches of the CUDA kernel, counted where it is launched and nowhere else.
-launches = {"siren_fwd": 0}
+# Launches of each CUDA kernel, counted where it is launched and nowhere else.
+launches = {"siren_fwd": 0, "siren_bwd": 0}
 
 
 def theta_size(dims: Sequence[int]) -> int:
@@ -59,25 +64,60 @@ def siren_forward_reference(x: torch.Tensor, theta: torch.Tensor, dims: Sequence
     return x
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("siren_fwd")
-    fn = lib.siren_fwd
+def siren_backward_reference(x: torch.Tensor, theta: torch.Tensor, dy: torch.Tensor,
+                             dims: Sequence[int], w0: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, the chain written out with
+    ``torch.bmm``: (x, theta, dy) -> (dx (B, P, dims[0]), dtheta (B, theta_size))
+    in theta's packed layout."""
+    B = x.shape[0]
+    n_layers = len(dims) - 1
+    ws, acts, dsin = [], [x], []
+    a, off = x, 0
+    for li in range(n_layers):
+        i, o = dims[li], dims[li + 1]
+        w, b = latent_to_weights(theta[:, off : off + o * (i + 1)], i, o)
+        off += o * (i + 1)
+        ws.append(w)
+        z = torch.baddbmm(b.reshape(B, 1, o), a, w)
+        if li != n_layers - 1:
+            a = torch.sin(w0 * z)
+            acts.append(a)
+            dsin.append(w0 * torch.cos(w0 * z))
+    dz, grads = dy, []
+    for li in range(n_layers - 1, -1, -1):
+        dw = torch.bmm(acts[li].transpose(1, 2), dz)
+        grads.append(torch.cat([dz.sum(1), dw.reshape(B, -1)], dim=1))
+        da = torch.bmm(dz, ws[li].transpose(1, 2))
+        if li > 0:
+            dz = da * dsin[li - 1]
+    return da, torch.cat(grads[::-1], dim=1)
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, theta, y
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, P, n_layers
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_float,  # dims (host), theta_stride, w0
-        ctypes.c_int, ctypes.c_void_p,  # samples_per_block, stream
-    ]
+    if name == "siren_fwd":
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, theta, y
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, P, n_layers
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_float,  # dims (host), theta_stride, w0
+            ctypes.c_int, ctypes.c_void_p,  # samples_per_block, stream
+        ]
+    else:
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, theta, dy
+            ctypes.c_void_p, ctypes.c_void_p,  # dx, dtheta
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, P, n_layers
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_float,  # dims (host), theta_stride, w0
+            ctypes.c_void_p,  # stream
+        ]
     return lib
 
 
-def siren_forward(x: torch.Tensor, theta: torch.Tensor, dims: Sequence[int], w0: float,
-                  samples_per_block: int = 1) -> torch.Tensor:
-    """(B, P, dims[0]) features x per-sample packed weights (B, theta_size)
-    -> (B, P, dims[-1]). CUDA tensors go through the kernel; CPU tensors
-    through the plain version."""
-    dims = [int(d) for d in dims]
+def _check(x: torch.Tensor, theta: torch.Tensor, dims: List[int]) -> None:
+    """Shape, type and device checks shared by both wrappers; raises on what
+    the kernels do not take."""
     if x.dim() != 3 or theta.dim() != 2:
         raise ValueError(f"x must be (B, P, in) and theta (B, n), got {tuple(x.shape)}, "
                          f"{tuple(theta.shape)}")
@@ -89,22 +129,33 @@ def siren_forward(x: torch.Tensor, theta: torch.Tensor, dims: Sequence[int], w0:
         raise TypeError(f"float32 only, got {x.dtype}, {theta.dtype}")
     if x.device != theta.device:
         raise ValueError(f"x on {x.device}, theta on {theta.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "cuda":
+        if not (x.is_contiguous() and theta.is_contiguous()):
+            raise ValueError("x and theta must be contiguous")
+        if len(dims) - 1 > MAX_LAYERS or max(dims) > MAX_WIDTH:
+            raise ValueError(f"widths {dims} exceed the kernels' {MAX_LAYERS} layers of "
+                             f"at most {MAX_WIDTH}")
+
+
+def siren_forward(x: torch.Tensor, theta: torch.Tensor, dims: Sequence[int], w0: float,
+                  samples_per_block: int = 1) -> torch.Tensor:
+    """(B, P, dims[0]) features x per-sample packed weights (B, theta_size)
+    -> (B, P, dims[-1]). CUDA tensors go through the kernel; CPU tensors
+    through the plain version."""
+    dims = [int(d) for d in dims]
+    _check(x, theta, dims)
     if x.device.type == "cpu":
         return siren_forward_reference(x, theta, dims, w0)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if not (x.is_contiguous() and theta.is_contiguous()):
-        raise ValueError("x and theta must be contiguous")
-    if len(dims) - 1 > MAX_LAYERS or max(dims) > MAX_WIDTH:
-        raise ValueError(f"widths {dims} exceed the kernel's {MAX_LAYERS} layers of "
-                         f"at most {MAX_WIDTH}")
+    B, P, _ = x.shape
     if samples_per_block < 1:
         raise ValueError(f"samples_per_block must be >= 1, got {samples_per_block}")
     y = torch.empty(B, P, dims[-1], device=x.device, dtype=torch.float32)
     dims_c = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().siren_fwd(
+        rc = _lib("siren_fwd").siren_fwd(
             x.data_ptr(), theta.data_ptr(), y.data_ptr(), B, P, len(dims) - 1,
             ctypes.cast(dims_c, ctypes.c_void_p), theta.shape[1], float(w0),
             int(samples_per_block), stream,
@@ -113,6 +164,58 @@ def siren_forward(x: torch.Tensor, theta: torch.Tensor, dims: Sequence[int], w0:
         raise RuntimeError(f"siren_fwd launch failed: cudaError {rc}")
     launches["siren_fwd"] += 1
     return y
+
+
+def siren_backward(x: torch.Tensor, theta: torch.Tensor, dy: torch.Tensor,
+                   dims: Sequence[int], w0: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of ``siren_forward`` given dy (B, P, dims[-1]): (dx (B, P,
+    dims[0]), dtheta (B, theta_size)). CUDA tensors go through the kernel,
+    whose dW/db sums run in a fixed order (no atomics), so repeated launches
+    on the same inputs are bitwise equal; CPU tensors through the plain
+    version."""
+    dims = [int(d) for d in dims]
+    _check(x, theta, dims)
+    B, P, _ = x.shape
+    if dy.shape != (B, P, dims[-1]) or dy.dtype != torch.float32 or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} does not match "
+                         f"x {tuple(x.shape)} on {x.device} and widths {dims}")
+    if x.device.type == "cpu":
+        return siren_backward_reference(x, theta, dy, dims, w0)
+    if not dy.is_contiguous():
+        raise ValueError("dy must be contiguous")
+    dx = torch.empty_like(x)
+    # with no pixels the kernel writes nothing, and dtheta is zero
+    dtheta = (torch.zeros_like if P == 0 else torch.empty_like)(theta)
+    dims_c = (ctypes.c_int * len(dims))(*dims)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib("siren_bwd").siren_bwd(
+            x.data_ptr(), theta.data_ptr(), dy.data_ptr(), dx.data_ptr(), dtheta.data_ptr(),
+            B, P, len(dims) - 1, ctypes.cast(dims_c, ctypes.c_void_p), theta.shape[1],
+            float(w0), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"siren_bwd launch failed: cudaError {rc}")
+    launches["siren_bwd"] += 1
+    return dx, dtheta
+
+
+class SirenMLP(torch.autograd.Function):
+    """``siren_forward`` with ``siren_backward`` as its gradient: the port's
+    counterpart of the JAX package's ``custom_vjp`` pair (``_make_fused``)."""
+
+    @staticmethod
+    def forward(ctx, x, theta, dims, w0, samples_per_block=1):
+        ctx.save_for_backward(x, theta)
+        ctx.dims, ctx.w0 = dims, w0
+        return siren_forward(x, theta, dims, w0, samples_per_block)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, theta = ctx.saved_tensors
+        dx, dtheta = siren_backward(x, theta, dy.contiguous(), ctx.dims, ctx.w0)
+        return dx, dtheta, None, None, None
 
 
 def materialize_theta(h_w: torch.Tensor, A: Sequence[torch.Tensor],
@@ -148,16 +251,17 @@ def fused_mlp(x: torch.Tensor, wbs: Sequence[torch.Tensor], w0: float,
         [t for w, b in zip(wbs[::2], wbs[1::2]) for t in (b.reshape(B, -1), w.reshape(B, -1))],
         dim=-1,
     )
-    return siren_forward(x.contiguous(), theta, dims, w0, samples_per_block)
+    return SirenMLP.apply(x.contiguous(), theta, dims, w0, samples_per_block)
 
 
 def inr_forward_fused(x: torch.Tensor, h_w: torch.Tensor, A: Sequence[torch.Tensor],
                       cfg: ModalityConfig, samples_per_block: int = 1) -> torch.Tensor:
-    """Counterpart of ``models.inr.inr_forward`` through the kernel:
-    x (R, S, P, in), h_w (R, S, D) -> (R, S, P, out)."""
+    """Counterpart of ``models.inr.inr_forward`` through the kernels:
+    x (R, S, P, in), h_w (R, S, D) -> (R, S, P, out), differentiable in x,
+    h_w and A (the SIREN chain's gradient through ``siren_backward``)."""
     R, S, P, fin = x.shape
     B = R * S
     theta = materialize_theta(h_w.reshape(B, -1), A, cfg)
-    y = siren_forward(x.reshape(B, P, fin).contiguous(), theta, cfg.net_dims, cfg.w0,
-                      samples_per_block)
+    y = SirenMLP.apply(x.reshape(B, P, fin).contiguous(), theta, tuple(cfg.net_dims), cfg.w0,
+                       samples_per_block)
     return y.reshape(R, S, P, cfg.output_dim)

@@ -51,3 +51,22 @@ def test_flags_and_source(fresh_build, monkeypatch):
     assert args.strip().endswith("csrc/siren_fwd.cu")
     assert os.path.exists(built.path) and built.path.startswith(_build.BUILD_DIR)
     assert _build.build("siren_fwd") is built  # built once per process
+
+
+def test_build_all_starts_one_nvcc_per_source_together(fresh_build, monkeypatch):
+    """Both kernels' sources build at once: each fake nvcc waits until the
+    other has started, so a serial build would time out."""
+    marks = fresh_build / "started"
+    marks.mkdir()
+    _fake_nvcc(fresh_build / "cuda" / "bin",
+               f'src=""; out=""; prev=""\n'
+               'for a; do [ "$prev" = "-o" ] && out=$a; src=$a; prev=$a; done\n'
+               f'touch {marks}/$(basename $src)\n'
+               f'for i in $(seq 100); do [ $(ls {marks} | wc -l) -ge 2 ] && break; sleep 0.1; done\n'
+               f'[ $(ls {marks} | wc -l) -ge 2 ] || exit 3\n'
+               'touch "$out"\n')
+    monkeypatch.setenv("CUDA_HOME", str(fresh_build / "cuda"))
+    built = _build.build_all(["siren_fwd", "siren_bwd"])
+    assert sorted(os.listdir(marks)) == ["siren_bwd.cu", "siren_fwd.cu"]
+    assert all(os.path.exists(b.path) for b in built.values())
+    assert built["siren_bwd"].path != built["siren_fwd"].path

@@ -12,6 +12,10 @@ import recombiner_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "flax", "optax", "tqdm", "recombiner_tpu")
+# the encode slice's modules, named so that the check above cannot pass
+# without them
+ENCODE_MODULES = ("coding.encoder", "coding.progressive", "coding.gumbel", "cli.compress",
+                  "data.pipeline", "data.image", "data.load_data", "metrics")
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|tqdm|recombiner_tpu)\b", re.M)
 
 
@@ -50,13 +54,15 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 assert all(sys.modules.get(b) is None for b in {BLOCKED!r})
-print(len(mods))
+print(" ".join(mods))
 """
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 15
+    imported = set(res.stdout.strip().splitlines()[-1].split())
+    assert len(imported) >= 31
+    assert {f"recombiner_tpu_torch.{m}" for m in ENCODE_MODULES} <= imported
 
 
 def test_every_port_module_imports_here():
