@@ -8,16 +8,20 @@ Phases (each prints its seconds; any failure exits non-zero, nothing is
 caught and passed over):
 
 1. the card: name and power limit from nvidia-smi;
-2. build both CUDA kernels (ops/csrc/siren_fwd.cu, ops/csrc/siren_bwd.cu)
-   with nvcc, one process each, started together; print ptxas' register /
-   shared-memory / spill lines;
+2. build both CUDA kernels (ops/csrc/siren_fwd.cu, ops/csrc/siren_bwd.cu,
+   both including ops/csrc/siren_mma.cuh) with nvcc, one process each,
+   started together; print ptxas' register / shared-memory / spill lines
+   and each launcher's plan at CIFAR widths (warps and shared memory per
+   block, resident blocks per SM);
 3. hold siren_fwd against its plain PyTorch version on the card: CIFAR
    B = 500, P = 1024 in both launch shapes (one sample per block, the main
    path's, and groups of 8), and B = 3 with P = 1000 (not a multiple of the
-   256-pixel tile);
+   256-pixel tile); at B = 500 the kernel's and the plain version's gaps to
+   an f64 evaluation are printed;
 4. hold siren_bwd against its plain version: CIFAR encode's B = 2,500
    (R = 500 x S = 5), P = 1024, and B = 3, P = 1000; two launches must be
-   bitwise equal; and siren_fwd at the encode's B = 2,500 in the launch the
+   bitwise equal; at B = 2,500 the kernel's and the plain version's gaps to
+   an f64 evaluation are printed; and siren_fwd at the encode's B = 2,500 in the launch the
    encode makes (one sample per block);
 5. the decode slice: a CIFAR prior artifact made from --seed by the port's
    own code (nothing is read from docs/), init_codec at R = 500, random
@@ -29,9 +33,12 @@ caught and passed over):
    launch counts read around it (siren_bwd once per epoch); the bitstream
    written, read back and decoded on the card; one encode step on the card
    compared with the CPU's;
-7. timings with CUDA events: both kernels and their plain versions, decode
+7. timings: both kernels and their plain versions by CUDA events (device
+   time of back-to-back calls, see ``cuda_ms``), decode
    datapoints/s, the encode epoch (epoch_s), one encode step (code_step_s)
-   and peak device memory;
+   and peak device memory; each kernel's bound at f32 accuracy (bytes, or
+   operations on the faster of FP32 FMA and 3xTF32 on the tensor cores)
+   and, beside it, the FP32-FMA bound of earlier runs;
 8. ten decodes and ten encode epochs under torch.profiler: device busy
    time, the idle share against the wall time of the same profiled calls,
    and the kernels that take the time.
@@ -44,7 +51,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -83,9 +92,44 @@ ATOL = RTOL = 1e-4
 # gradient entry. At these inputs the f32 plain version itself differs from
 # an f64 evaluation by about 5e-5 of it.
 BWD_OF_MAX = 2e-4
-# H100 SXM data-sheet peaks (dense): FP32 outside the tensor cores, HBM3.
+# H100 SXM data-sheet peaks (dense): FP32 outside the tensor cores, TF32 on
+# them, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_S = 3.35e12
+DESIGN = {
+    "siren_fwd": "3xTF32 mma.sync tiles, one sample's weights staged once per block",
+    "siren_bwd": "3xTF32 mma.sync tiles, one sincos per unit, fixed-order dW in shared memory",
+}
+
+
+def bounds(flops: float, nbytes: float):
+    """The least time the card could take at f32 accuracy: the larger of the
+    bytes over the memory rate and the operations over the faster f32-exact
+    route (FP32 FMA, or 3xTF32: three TF32 tensor-core products per
+    product). Returns (bound_ms, "bytes" or "operations", the route of the
+    operations term, and the FP32-FMA bound that earlier runs reported, in
+    ms). The kernels' transcendentals are not counted."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_fp32, t_3xtf32 = flops / PEAK_FP32_FLOPS, 3 * flops / PEAK_TF32_FLOPS
+    t_ops = min(t_fp32, t_3xtf32)
+    return (1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes",
+            "3xTF32" if t_3xtf32 <= t_fp32 else "FP32 FMA", 1e3 * max(t_fp32, t_bytes))
+
+
+def launch_plan(name: str, dims) -> dict:
+    """Warps per block, dynamic shared memory per block and resident blocks
+    per SM that the kernel's launcher picks for these widths."""
+    fn = getattr(_build.load(name), f"{name}_plan")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    out = (ctypes.c_int * 4)()
+    rc = fn(len(dims) - 1, ctypes.cast((ctypes.c_int * len(dims))(*dims), ctypes.c_void_p),
+            ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"{name}_plan failed: cudaError {rc}")
+    return {"warps_per_block": out[0], "smem_bytes_per_block": out[1],
+            "blocks_per_sm": out[2]}
 
 
 @contextlib.contextmanager
@@ -169,6 +213,13 @@ def max_err_of_max(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
     return err
 
 
+def f64_gaps(kernel: torch.Tensor, plain: torch.Tensor, ref64: torch.Tensor):
+    """(kernel, plain version) max abs diff to an f64 evaluation, each over
+    the f64 evaluation's largest entry."""
+    top = ref64.abs().max()
+    return tuple(((t.double() - ref64).abs().max() / top).item() for t in (kernel, plain))
+
+
 def smooth_images(n: int, seed: int) -> np.ndarray:
     """n CIFAR-sized images (32 x 32 x 3, values in [0.1, 0.9]) from ``seed``:
     a few random plane waves per channel."""
@@ -181,11 +232,32 @@ def smooth_images(n: int, seed: int) -> np.ndarray:
     return (0.5 + 0.2 * waves).transpose(0, 2, 3, 1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_s() -> float:
+    """The rate at which ``torch.cuda._sleep`` spins, timed once by events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10**7)
+    end.record()
+    torch.cuda.synchronize()
+    return 1e7 / (start.elapsed_time(end) / 1e3)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn`` by CUDA events. The calls are
+    queued behind a spinning kernel that outlasts the host's queueing of
+    them (twice one call's host time per call, plus 1 ms), so the events time
+    the card's work back to back, not the host's launch rate, which varies
+    with the load on the machine's CPU."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * iters * host_s + 1e-3) * sleep_cycles_per_s()))
     start.record()
     for _ in range(iters):
         fn()
@@ -244,6 +316,9 @@ def main(argv=None) -> int:
             for line in built.log.splitlines():
                 if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
                     print("  " + line.strip())
+        plans = {name: launch_plan(name, list(dims)) for name in ("siren_fwd", "siren_bwd")}
+        for name, plan in plans.items():
+            print(f"{name} launch plan at widths {list(dims)}: {plan}; design: {DESIGN[name]}")
 
     art = make_cifar_artifact(args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -257,6 +332,11 @@ def main(argv=None) -> int:
             errs.append(max_err(got, ref))
             print(f"B={N_ROWS} P={P} samples_per_block={spb}: max abs diff {errs[-1]:.3e} "
                   f"(atol {ATOL}, rtol {RTOL})")
+            if spb == 1:
+                gap = f64_gaps(got, ref, fused_inr.siren_forward_reference(
+                    x.double(), theta.double(), dims, cfg.w0))
+                print(f"  vs an f64 evaluation: max abs diff over the largest entry {gap[0]:.3e} "
+                      f"kernel, {gap[1]:.3e} plain version")
         x3, theta3 = kernel_inputs(art, 3, 1000, gen)
         ref3 = fused_inr.siren_forward_reference(x3, theta3, dims, cfg.w0)
         for spb in (1, 8):
@@ -280,7 +360,7 @@ def main(argv=None) -> int:
         x3b, theta3b = kernel_inputs(art, 3, 1000, gen)
         cases.append((x3b, theta3b, torch.randn(3, 1000, cfg.output_dim, generator=gen,
                                                 device="cuda")))
-        for xc, tc, dyc in cases:
+        for i, (xc, tc, dyc) in enumerate(cases):
             got = fused_inr.siren_backward(xc, tc, dyc, dims, cfg.w0)
             again = fused_inr.siren_backward(xc, tc, dyc, dims, cfg.w0)
             torch.cuda.synchronize()
@@ -293,6 +373,14 @@ def main(argv=None) -> int:
                   f"{ref_dx.abs().max().item():.3e}), dtheta {e[1]:.3e} (largest "
                   f"{ref_dtheta.abs().max().item():.3e}); tolerance {BWD_OF_MAX} of the largest; "
                   "two launches bitwise equal")
+            if i == 0:
+                ref64 = fused_inr.siren_backward_reference(
+                    xc.double(), tc.double(), dyc.double(), dims, cfg.w0)
+                gaps = [f64_gaps(k, r, r64) for k, r, r64 in zip(got, (ref_dx, ref_dtheta), ref64)]
+                del ref64
+                print(f"B={xc.shape[0]} P={xc.shape[1]} vs an f64 evaluation: max abs diff over "
+                      f"the largest entry, dx {gaps[0][0]:.3e} kernel, {gaps[0][1]:.3e} plain; "
+                      f"dtheta {gaps[1][0]:.3e} kernel, {gaps[1][1]:.3e} plain")
         # freed here and drawn again for the timings, so that decode's peak
         # memory below counts what it counted before this phase existed
         del ref_dx, ref_dtheta, got, again, cases, xb, thetab, dyb
@@ -385,13 +473,13 @@ def main(argv=None) -> int:
         plain_ms = cuda_ms(lambda: fused_inr.siren_forward_reference(x, theta, dims, cfg.w0), 20)
         flops = 2 * N_ROWS * P * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
         nbytes = 4 * (x.numel() + theta.numel() + N_ROWS * P * dims[-1])
-        bound_ms = 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S)
-        bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_S else "bytes"
+        bound_ms, bound_by, ops_route, fma_bound_ms = bounds(flops, nbytes)
         for spb in (1, 8):
             print(f"siren_fwd samples_per_block={spb}: {ms[spb]:.4f} ms "
                   f"({flops / ms[spb] / 1e9:.2f} TFLOP/s)")
         print(f"plain version (torch.baddbmm + sin): {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"by {bound_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+              f"by {bound_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; operations term "
+              f"{ops_route}); FP32-FMA bound {fma_bound_ms:.4f} ms [{card}]")
 
         decode(codec, idx, X, cfg)
         torch.cuda.synchronize()
@@ -416,13 +504,13 @@ def main(argv=None) -> int:
         macs = [dims[i] * dims[i + 1] for i in range(len(dims) - 1)]
         bwd_flops = 2 * B_enc * P * (sum(macs[:-1]) + 2 * sum(macs))
         bwd_bytes = 4 * (2 * xb.numel() + 2 * thetab.numel() + dyb.numel())
-        bwd_bound_ms = 1e3 * max(bwd_flops / PEAK_FP32_FLOPS, bwd_bytes / PEAK_BYTES_S)
-        bwd_bound_by = ("operations" if bwd_flops / PEAK_FP32_FLOPS >= bwd_bytes / PEAK_BYTES_S
-                        else "bytes")
+        bwd_bound_ms, bwd_bound_by, bwd_ops_route, bwd_fma_bound_ms = bounds(bwd_flops,
+                                                                              bwd_bytes)
         print(f"siren_bwd B={B_enc} P={P}: {bwd_ms:.4f} ms ({bwd_flops / bwd_ms / 1e9:.2f} "
               f"TFLOP/s); plain version (torch.bmm chain) {bwd_plain_ms:.4f} ms; bound "
               f"{bwd_bound_ms:.4f} ms by {bwd_bound_by} ({bwd_flops / 1e9:.3f} GFLOP, "
-              f"{bwd_bytes / 1e6:.2f} MB) [{card}]")
+              f"{bwd_bytes / 1e6:.2f} MB; operations term {bwd_ops_route}); FP32-FMA bound "
+              f"{bwd_fma_bound_ms:.4f} ms [{card}]")
         del xb, thetab, dyb
 
         # S = 5 epochs at R = 500 from the fresh state, as phase 1 runs them
@@ -485,6 +573,8 @@ def main(argv=None) -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_route": ops_route if bound_by == "operations" else "HBM",
+        "fp32_fma_bound_ms": fma_bound_ms,
         "library_ms": None,
     }, {
         "name": "siren_bwd",
@@ -499,6 +589,8 @@ def main(argv=None) -> int:
         "plain_ms": bwd_plain_ms,
         "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by,
+        "bound_route": bwd_ops_route if bwd_bound_by == "operations" else "HBM",
+        "fp32_fma_bound_ms": bwd_fma_bound_ms,
         "library_ms": None,
     }]
     print("kernels: siren_fwd (CUDA, replaces recombiner_tpu/ops/fused_inr.py::_fwd_kernel and "

@@ -22,14 +22,13 @@ from recombiner_tpu_torch.device import resolve_device
 from recombiner_tpu_torch.io.bitstream import write_bitstream
 from recombiner_tpu_torch.io.checkpoint import load_prior_artifact
 
-# The JAX CLI's other flags, accepted so that they fail with the queue that
-# ports them rather than as unknown arguments.
-NOT_PORTED = {
+# The queue that ports each flag's values that the port does not run yet
+# (ROADMAP.md, port queue 1 unless named).
+_QUEUE = {
+    "schedule": "the adaptive/quality presets",
     "state_path": "io/encode_state resume",
-    "save_every": "io/encode_state resume",
-    "n_devices": "scale-out",
-    "sync_every": "scale-out",
-    "remat": "remat",
+    "n_devices": "scale-out (queue 7)",
+    "remat": "remat (queue 1 item 4)",
     "finetune_crn": "finetune common random numbers",
     "ft_lr": "the fused coding path",
     "ft_lr_schedule": "the fused coding path",
@@ -37,13 +36,14 @@ NOT_PORTED = {
     "ft_stop": "optimize_adaptive",
     "p1_lr": "the adaptive/quality presets",
     "p1_samples": "the adaptive/quality presets",
-    "p1_monitor": "optimize_adaptive",
-    "fused_steps": "encode_chunk",
     "precision": "precision modes (the port encodes in exact f32)",
 }
 
 
 def parse_args(argv=None):
+    """The JAX CLI's flags (``recombiner_tpu/cli/compress.py::parse_args``),
+    each with its type, nargs, choices, action and default, plus
+    ``--device``'s meaning here: the torch device."""
     p = argparse.ArgumentParser(description="Compress test datapoints with a trained prior "
                                             "(PyTorch port)")
     p.add_argument("--seed", type=int, default=42)
@@ -55,29 +55,75 @@ def parse_args(argv=None):
     p.add_argument("--prior_path", required=True)
     p.add_argument("--save_dir", required=True)
     p.add_argument("--save_bitstream", default=True)
-    p.add_argument("--n_epochs", type=int, default=30000,
-                   help="phase-1 posterior optimisation epochs (the reference's 30000)")
+    p.add_argument("--n_epochs", type=int, default=None,
+                   help="phase-1 posterior optimisation epochs (default: the reference's "
+                        "30000)")
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--sample_size", type=int, default=5)
     p.add_argument("--finetune_epochs", type=int, default=None,
                    help="per-group finetune epochs (default: the reference schedule)")
-    p.add_argument("--schedule", default="reference", choices=("reference", "adaptive", "quality"),
+    p.add_argument("--state_path", default=None, help="not ported: encode-state snapshots")
+    p.add_argument("--save_every", type=int, default=10,
+                   help="snapshot cadence; only read with --state_path")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="data-parallel device count; the port encodes on one device")
+    p.add_argument("--sync_every", type=int, default=1,
+                   help="flow-control batching in the JAX package; results identical, "
+                        "so the port accepts and ignores it")
+    p.add_argument("--remat", action=argparse.BooleanOptionalAction, default=None,
+                   help="rematerialisation; the port stores activations (--no-remat or "
+                        "the default)")
+    p.add_argument("--finetune_crn", action=argparse.BooleanOptionalAction, default=None,
+                   help="one noise stream for every finetune; default off on non-patch "
+                        "configs, as the port runs")
+    p.add_argument("--schedule", default="reference",
+                   choices=("reference", "adaptive", "quality"),
                    help="encode schedule; only 'reference' is ported")
-    for name, queue in NOT_PORTED.items():
-        p.add_argument(f"--{name}", nargs="*", default=None,
-                       help=f"not ported yet (ROADMAP.md, port queue: {queue})")
+    p.add_argument("--ft_lr", type=float, default=None)
+    p.add_argument("--ft_lr_schedule", default=None, choices=(None, "cosine"))
+    p.add_argument("--p1_stop", type=float, nargs=3, default=None,
+                   metavar=("WINDOW", "REL_TOL", "MIN_EPOCHS"))
+    p.add_argument("--ft_stop", type=float, nargs=3, default=None,
+                   metavar=("WINDOW", "REL_TOL", "MIN_EPOCHS"))
+    p.add_argument("--p1_lr", type=float, nargs=2, default=None, metavar=("PEAK", "FLOOR"))
+    p.add_argument("--p1_samples", type=int, default=None)
+    p.add_argument("--p1_monitor", default="mse", choices=("mse", "loss"),
+                   help="phase-1 plateau statistic; only read with --p1_stop")
+    p.add_argument("--fused_steps", type=int, default=None,
+                   help="group steps per compiled program in the JAX package; "
+                        "bit-identical there, so the port accepts and ignores it")
+    p.add_argument("--precision", default=None,
+                   choices=("scoped", "scoped_high", "default", "high", "highest"),
+                   help="the port runs exact f32 throughout: the default or 'highest'")
     return p.parse_args(argv)
+
+
+def unported(args) -> list:
+    """``--flag value (queue)`` for each given value that would make the port
+    run something other than what it runs; empty when it runs them all."""
+    bad = {
+        "schedule": args.schedule != "reference",
+        "state_path": args.state_path is not None,
+        "n_devices": args.n_devices is not None and args.n_devices > 1,
+        "remat": bool(args.remat),
+        "finetune_crn": bool(args.finetune_crn),
+        "ft_lr": args.ft_lr is not None,
+        "ft_lr_schedule": args.ft_lr_schedule is not None,
+        "p1_stop": args.p1_stop is not None,
+        "ft_stop": args.ft_stop is not None,
+        "p1_lr": args.p1_lr is not None,
+        "p1_samples": args.p1_samples not in (None, args.sample_size),
+        "precision": args.precision not in (None, "highest"),
+    }
+    return [f"--{name} {getattr(args, name)} ({_QUEUE[name]})"
+            for name, on in bad.items() if on]
 
 
 def main(argv=None):
     args = parse_args(argv)
-    given = [n for n in NOT_PORTED if getattr(args, n) is not None]
-    if args.schedule != "reference":
-        given.insert(0, f"schedule {args.schedule}")
+    given = unported(args)
     if given:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(f"--{n}" for n in given)
-            + " (ROADMAP.md, port queue 1: the rest of encode)")
+        raise NotImplementedError("not ported yet: " + ", ".join(given) + " (ROADMAP.md)")
     art = load_prior_artifact(args.prior_path)
     cfg = art.config
     if args.dataset is not None and args.dataset != cfg.name:
@@ -90,7 +136,8 @@ def main(argv=None):
           flush=True)
     result = compress(
         codec, state, X, Y, cfg, torch.Generator(device=dev).manual_seed(args.seed),
-        n_optimize_epochs=args.n_epochs, lr=args.lr, sample_size=args.sample_size,
+        n_optimize_epochs=30000 if args.n_epochs is None else args.n_epochs, lr=args.lr,
+        sample_size=args.sample_size,
         finetune_overrides=(None if args.finetune_epochs is None
                             else {"w": args.finetune_epochs}),
         verbose=True,

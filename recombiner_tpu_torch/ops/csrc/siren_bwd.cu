@@ -11,329 +11,358 @@
 // [db_l (out), dW_l (in x out, row-major)]). Nothing but x, theta, dy, dx
 // and dtheta touches device memory: the forward is recomputed on chip.
 //
-// Design: one block per sample; its threads walk the sample's pixels in
-// tiles of blockDim.x (128 when shared memory allows), one pixel per
-// thread, tile after tile in order. Per tile:
-//   1. x and dy tiles are copied in, coalesced, to shared memory;
-//   2. forward recompute, one pixel per thread, weights staged in shared
-//      memory once per block as in siren_fwd.cu (broadcast 16-byte loads);
-//      each pre-activation z_l is kept in shared memory (row per pixel);
-//   3. backward, layer by layer: each thread turns its z_{l-1} row into
-//      a_l = sin(w0 z) in place and keeps w0 cos(w0 z) in registers, and
-//      computes da_l for its pixel; then the block reduces dW_l, db_l over
-//      the tile's pixels, each thread owning fixed (row, 4 columns) cells
-//      of dtheta; then each thread writes dz_{l-1} = da_l * cos term for
-//      its pixel; at layer 0 da_0 goes out as dx through shared memory.
-// The dW/db sums over a tile run over pixels in order, and a tile's sum
-// is added to dtheta (which the same thread owns for the whole sample)
-// tile after tile in order: no atomics, so two launches on the same inputs
-// give bitwise-equal outputs.
+// Design (the 3xTF32 tile product, the fragment permutation, the staged
+// weight layout and the sincos are in siren_mma.cuh):
+// - One block of up to four warps per sample. Its weights are staged in
+//   shared memory once; it walks the sample's pixels in tiles of 16 per
+//   warp (64 at CIFAR), each warp owning 16 pixels of a tile.
+// - x and dy tiles arrive by cp.async, double-buffered: the next tile's
+//   copy is issued before this tile's first barrier and lands while it
+//   computes.
+// - Forward recompute, per warp in registers: each layer is a 3xTF32
+//   tensor-core product, and each hidden unit takes one sincos (the
+//   branch-free path, as accurate as the library's sincosf), keeping sin as
+//   the next layer's input (and in a shared tile for dW) and w0 cos in
+//   registers for the backward, which recomputes neither.
+// - Backward, per warp in registers, layer by layer: da_l = dz_l W_l^T is a
+//   tensor-core product whose A operand is dz_l's C fragment (the
+//   permutation); dz_{l-1} = da_l * w0 cos goes to a shared tile for dW and
+//   stays in registers as the next A operand; da_0 leaves as dx through a
+//   shared staging tile as coalesced 16-byte stores.
+// - dW_l = a_l^T dz_l needs both operands transposed (k = pixels), so it
+//   reads them from the shared tiles, whose row strides (8 or 24 mod 32
+//   floats) make those column reads free of bank conflicts. Its 16 x 8
+//   output tiles are dealt to the warps in a fixed way: warp w owns the
+//   8-column blocks nt = w, w + warps, ... with all their 16-row blocks, so
+//   a dz fragment is loaded and split once for the row blocks beside it.
+//   Each warp sums its tiles over the tile's pixels in registers, in order,
+//   and adds the sums to its own accumulator in shared memory (fragment
+//   order, 16-byte accesses) tile after tile; db_l rides on the same loads
+//   as per-lane f32 sums of the dz values, combined in a fixed order at the
+//   end. No atomics: two launches on the same inputs give bitwise-equal
+//   outputs. dtheta is written once, at the end of the sample. (Where the
+//   accumulator does not fit in shared memory, at the largest widths and
+//   depths, the owning lane adds each tile's sums to dtheta in device memory
+//   instead, in the same fixed order.)
+// - Barriers per tile: one after the copy, one after the forward, one per
+//   layer of the backward (its dW reads the tiles the other warps wrote):
+//   six at CIFAR's four layers.
+// - Two instances: CIFAR's widths fixed at compile time, and widths read at
+//   run time, up to 64 in up to 8 layers.
 //
-// Shared memory rows are padded to a multiple of 4 floats plus 4, so
-// per-pixel float4 row accesses are free of bank conflicts. At CIFAR widths
-// (32-32-32-32-3) a 128-pixel tile takes 105,360 bytes: two blocks per SM.
+// Shared memory at CIFAR widths (32-32-32-32-3), 64-pixel tiles: 106,528
+// bytes (weights 15.8 KB, accumulator 15.0 KB, two x, two dy and two dz
+// tiles, three activation tiles), so two blocks (eight warps) per SM. Four
+// blocks would need under 56 KB each: the activation and dz tiles that the
+// transposed dW operands are read from take 700 bytes per pixel, and eight
+// warps per block would double them. Registers: 121 (ptxas), of which the
+// w0 cos terms of three hidden layers take 48.
 //
-// Precision: FP32 FMA and the precise sinf / sincosf (w0 = 30 puts the
-// arguments far outside __sinf's accurate range); never --use_fast_math.
+// Precision: 3xTF32 products and f32 sums (see siren_mma.cuh: at CIFAR its
+// gaps to an f64 evaluation are 1.3 to 1.4 times the f32 plain version's),
+// and sines as accurate as the library's (w0 = 30 puts the arguments far
+// outside __sinf's accurate range); never --use_fast_math.
 //
-// Bound (CIFAR encode, B = 2,500 samples, P = 1,024, 32-32-32-32-3): per
-// pixel the forward recompute's 3,072 multiply-adds (it stops before the
-// last layer) and 3,168 each for dW and da, 9,408 in all: 48.2 GFLOP,
-// about 0.72 ms at the H100's 67 TFLOP/s FP32; 751 MB of x,
-// theta, dy, dx and dtheta, about 0.22 ms at 3.35 TB/s. Bound by operations.
+// Bound (CIFAR encode, B = 2,500 samples, P = 1,024): per pixel the forward
+// recompute's 3,072 multiply-adds (it stops before the last layer) and 3,168
+// each for dW and da, 9,408 in all: 48.17 GFLOP, 0.7189 ms at the 67
+// TFLOP/s FP32 FMA peak, 0.2919 ms as 3xTF32 on the tensor cores (3 x 48.17
+// GFLOP at 495 TFLOP/s); 751 MB of x, theta, dy, dx and dtheta, 0.2243 ms at
+// 3.35 TB/s. At f32 accuracy it is bound by operations (3xTF32). The 96
+// sincos per pixel are not counted. What holds it above that bound is
+// instruction issue and latency, not the tensor cores: dW's operand loads
+// and splits (about 50 instructions per 6 tile products) and the chains of
+// dependent mma.sync that eight warps per SM hide poorly.
+// scripts/torch_siren_variants.py times it with each phase cut out in turn
+// (PERF.md §6).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "siren_mma.cuh"
 
-#define SIREN_MAX_LAYERS 8
-#define SIREN_MAX_WIDTH 64
-#define BWD_MAX_THREADS 128
-#define SMEM_LIMIT (227 * 1024)
+#define BWD_MAX_WARPS 4
 
-struct SirenDims {
-  int n_layers;
-  int d[SIREN_MAX_LAYERS + 1];
+// Shared-memory layout (floats) and strides, computed on the host.
+struct BwdLayout {
+  int w_off[SIREN_MAX_LAYERS];     // staged weights of layer l
+  int tile0[SIREN_MAX_LAYERS];     // first dW output tile of layer l in acc
+  int g_off[SIREN_MAX_LAYERS];     // layer l's offset in packed theta
+  int act[SIREN_MAX_LAYERS];       // a_l tile, l = 1 .. L-1
+  int sa[SIREN_MAX_LAYERS];        // its row stride
+  int dbp[SIREN_MAX_LAYERS];       // per-lane db partial sums of layer l: round8(out) x 4
+  int zero_from;                   // everything from here on is zeroed at the start
+  int acc;                         // dW accumulator, 128 floats per tile; -1: in dtheta
+  int xb[2], dyb[2], dzb[2];       // double-buffered x, dy and dz tiles
+  int sx, sdy, sz;                 // their row strides
+  int total;
 };
 
-static __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
-// shared-memory row stride of a width-d activation row
-static __host__ __device__ __forceinline__ int srow(int d) { return round4(d) + 4; }
-
-// staged weights, in floats: per layer (in + 1) rows of round4(out)
-static __host__ __device__ int weight_floats(const SirenDims& dims) {
-  int n = 0;
-  for (int l = 0; l < dims.n_layers; ++l) n += (dims.d[l] + 1) * round4(dims.d[l + 1]);
-  return n;
-}
-
-// per tile, in floats: one row per pixel for a_0 .. a_{L-1} and for dz
-static __host__ __device__ int tile_floats(const SirenDims& dims, int tile) {
-  int n = 0, maxout = 0;
-  for (int l = 0; l < dims.n_layers; ++l) {
-    n += tile * srow(dims.d[l]);
-    maxout = dims.d[l + 1] > maxout ? dims.d[l + 1] : maxout;
+static BwdLayout bwd_layout(const SirenDims& dims, int warps, bool acc_in_smem) {
+  BwdLayout lay = {};
+  const int L = dims.n_layers, T = 16 * warps;
+  int off = 0, tiles = 0, goff = 0, sz = frag_stride(dims.d[0]);
+  for (int l = 0; l < L; ++l) {
+    const int in = dims.d[l], out = dims.d[l + 1];
+    lay.w_off[l] = off;
+    off += layer_floats(in, out);
+    lay.tile0[l] = tiles;
+    tiles += (round16(in) / 16) * (round8(out) / 8);
+    lay.g_off[l] = goff;
+    goff += (in + 1) * out;
+    if (l > 0) sz = frag_stride(in) > sz ? frag_stride(in) : sz;
   }
-  return n + tile * srow(maxout);
+  off = round4(off);
+  lay.zero_from = off;
+  lay.acc = acc_in_smem ? off : -1;
+  if (acc_in_smem) off += tiles * 128;
+  for (int l = 0; l < L; ++l) {
+    lay.dbp[l] = off;
+    off += round8(dims.d[l + 1]) * 4;
+  }
+  lay.sx = wide_stride(dims.d[0]);
+  lay.sdy = frag_stride(dims.d[L]);
+  lay.sz = sz;
+  for (int b = 0; b < 2; ++b) {
+    lay.xb[b] = off;
+    off += T * lay.sx;
+    lay.dyb[b] = off;
+    off += T * lay.sdy;
+    lay.dzb[b] = off;
+    off += T * lay.sz;
+  }
+  for (int l = 1; l < L; ++l) {
+    lay.sa[l] = wide_stride(dims.d[l]);
+    lay.act[l] = off;
+    off += T * lay.sa[l];
+  }
+  lay.total = off;
+  return lay;
 }
 
-template <int MAXW>
-__global__ void __launch_bounds__(BWD_MAX_THREADS)
+// dW_l and db_l over one tile's T pixels for the output tiles this warp
+// owns: A rows a_l (stride sA), Z rows dz_l (stride sZ). Warp w owns the
+// 8-column blocks nt = w, w + warps, ... of dW_l with all their 16-row
+// blocks, so each dz fragment is loaded and split once for all of them and
+// their MT products run side by side, each into its two accumulators.
+template <int MT>
+__device__ __forceinline__ void dw_tile(const float* A, int sA, const float* Z, int sZ, int in,
+                                        int out, int T, int warp, int warps, int lane,
+                                        float* acc, float* dbp, float* dth, bool first) {
+  const int g = lane >> 2, t = lane & 3;
+  const int nts = round8(out) >> 3, mts = round16(in) >> 4;
+  for (int nt = warp; nt < nts; nt += warps) {
+    float big[MT][4], small[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) big[mt][i] = small[mt][i] = 0.f;
+    }
+    float db = 0.f;
+    for (int kk = 0; kk < T; kk += 8) {
+      const float* zr = Z + (kk + t) * sZ + 8 * nt + g;
+      const float z0 = zr[0], z1 = zr[4 * sZ];
+      db += z0;
+      db += z1;
+      uint32_t bhi[2], blo[2];
+      split_tf32(z0, bhi[0], blo[0]);
+      split_tf32(z1, bhi[1], blo[1]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (mt < mts) {
+          const float* ar = A + (kk + t) * sA + 16 * mt + g;
+          uint32_t ahi[4], alo[4];
+          split_tf32(ar[0], ahi[0], alo[0]);
+          split_tf32(ar[8], ahi[1], alo[1]);
+          split_tf32(ar[4 * sA], ahi[2], alo[2]);
+          split_tf32(ar[4 * sA + 8], ahi[3], alo[3]);
+          mma_3xtf32(big[mt], small[mt], ahi, alo, bhi, blo);
+        }
+      }
+    }
+    dbp[(8 * nt + g) * 4 + t] += db;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (mt < mts) {
+        const float d[4] = {big[mt][0] + small[mt][0], big[mt][1] + small[mt][1],
+                            big[mt][2] + small[mt][2], big[mt][3] + small[mt][3]};
+        if (acc) {
+          float4* p = reinterpret_cast<float4*>(acc) + (mt * nts + nt) * 32 + lane;
+          float4 v = *p;
+          v.x += d[0];
+          v.y += d[1];
+          v.z += d[2];
+          v.w += d[3];
+          *p = v;
+        } else {
+          // rows 16 mt + g (+ 8), columns 8 nt + 2t (+ 1) of dW_l in packed dtheta
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = 16 * mt + g + 8 * (i >> 1), c = 8 * nt + 2 * t + (i & 1);
+            if (r < in && c < out) {
+              float* q = dth + out + r * out + c;
+              *q = first ? d[i] : *q + d[i];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int MAXW, int MAXL, int IN0 = 0, int HID = 0, int OUT = 0>
+__global__ void __launch_bounds__(BWD_MAX_WARPS * 32)
 siren_bwd_kernel(const float* __restrict__ x, const float* __restrict__ theta,
                  const float* __restrict__ dy, float* __restrict__ dx,
                  float* __restrict__ dtheta, int P, int theta_stride, SirenDims dims,
-                 float w0) {
+                 BwdLayout lay, float w0, int x_vec4, int dy_vec4) {
+  constexpr int NT = MAXW / 8;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int T = blockDim.x;  // pixels per tile
-  const int t = threadIdx.x;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, warps = nthreads >> 5, lane = tid & 31;
+  const int T = 16 * warps;
   const int s = blockIdx.x;
-  const int L = dims.n_layers;
-  const int in0 = dims.d[0], outL = dims.d[L];
+  const Widths<MAXL, IN0, HID, OUT> W{dims};
+  const int L = W.layers(), in0 = W[0], outL = W[L];
 
-  const int w_floats = weight_floats(dims);
-  float* act0 = smem + w_floats;  // a_0 rows; then one buffer per layer
-  const int t_floats = tile_floats(dims, T);
-  int maxout = 0;
-  for (int l = 0; l < L; ++l) maxout = dims.d[l + 1] > maxout ? dims.d[l + 1] : maxout;
-  float* dzb = act0 + t_floats - T * srow(maxout);  // dz rows of the current layer
+  // pads, accumulators and tiles start at zero; staging writes every weight
+  for (int i = lay.zero_from + tid; i < lay.total; i += nthreads) smem[i] = 0.f;
+  stage_weights(smem, lay.w_off, theta + (size_t)s * theta_stride, dims, tid, nthreads);
+  __syncthreads();
 
-  // stage theta[s] (bias row, then weight rows, each padded to round4(out))
-  const float* th = theta + (size_t)s * theta_stride;
-  {
-    int src = 0, dst = 0;
-    for (int l = 0; l < L; ++l) {
-      const int out = dims.d[l + 1], out4 = round4(out);
-      const int n = (dims.d[l] + 1) * out4;
-      for (int k = t; k < n; k += T) {
-        const int r = k / out4, c = k - r * out4;
-        smem[dst + k] = c < out ? th[src + r * out + c] : 0.f;
-      }
-      src += (dims.d[l] + 1) * out;
-      dst += n;
-    }
-  }
-
-  float* dth = dtheta + (size_t)s * theta_stride;
   const float* xs = x + (size_t)s * P * in0;
   const float* dys = dy + (size_t)s * P * outL;
   float* dxs = dx + (size_t)s * P * in0;
-  const int sr0 = srow(in0), srL = srow(outL), in04 = round4(in0), outL4 = round4(outL);
+  float* dth = dtheta + (size_t)s * theta_stride;
+  const int n_tiles = (P + T - 1) / T;
 
-  for (int p0 = 0; p0 < P; p0 += T) {
-    const int nv = min(T, P - p0);
-    __syncthreads();  // the previous tile's readers of act0 / dzb are done
-    // x and dy tiles, zero past the last pixel and in the pad lanes
-    for (int k = t; k < T * in04; k += T) {
-      const int r = k / in04, c = k - r * in04;
-      act0[r * sr0 + c] = r < nv && c < in0 ? xs[(size_t)(p0 + r) * in0 + c] : 0.f;
+  copy_rows_async(smem + lay.xb[0], lay.sx, xs, in0, T, P, x_vec4, tid, nthreads);
+  copy_rows_async(smem + lay.dyb[0], lay.sdy, dys, outL, T, P, dy_vec4, tid, nthreads);
+  cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int cur = it & 1, p0 = it * T;
+    if (it + 1 < n_tiles) {
+      const int p1 = p0 + T;
+      copy_rows_async(smem + lay.xb[cur ^ 1], lay.sx, xs + (size_t)p1 * in0, in0, T, P - p1,
+                      x_vec4, tid, nthreads);
+      copy_rows_async(smem + lay.dyb[cur ^ 1], lay.sdy, dys + (size_t)p1 * outL, outL, T,
+                      P - p1, dy_vec4, tid, nthreads);
     }
-    for (int k = t; k < T * outL4; k += T) {
-      const int r = k / outL4, c = k - r * outL4;
-      dzb[r * srL + c] = r < nv && c < outL ? dys[(size_t)(p0 + r) * outL + c] : 0.f;
-    }
-    __syncthreads();
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this tile's x and dy are in
 
-    // ---- forward recompute for pixel p0 + t: z_l -> the next layer's rows
+    // ---- forward recompute for pixels p0 + 16 warp + [0, 16)
+    float cs[MAXL - 1][NT][4];  // w0 cos(w0 z_l) of hidden layer l
     {
-      float a[MAXW], z[MAXW];
-      const float4* x4 = reinterpret_cast<const float4*>(act0 + t * sr0);
+      float a[NT][4];
+      load_c(a, smem + lay.xb[cur] + 16 * warp * lay.sx, lay.sx, in0, lane);
 #pragma unroll
-      for (int i4 = 0; i4 < MAXW / 4; ++i4) {
-        if (4 * i4 < in0) {
-          const float4 v = x4[i4];
-          a[4 * i4] = v.x;
-          a[4 * i4 + 1] = v.y;
-          a[4 * i4 + 2] = v.z;
-          a[4 * i4 + 3] = v.w;
+      for (int l = 0; l < MAXL - 1; ++l) {
+        if (l < L - 1) {
+          const int out = W[l + 1];
+          float z[NT][4];
+          layer_forward(a, z, smem + lay.w_off[l], W[l], out, lane);
+          sin_cos_tile(z, round8(out) >> 3, w0, a, cs[l]);
+          store_c(a, smem + lay.act[l + 1] + 16 * warp * lay.sa[l + 1], lay.sa[l + 1], out,
+                  lane);
         }
-      }
-      const float* layer = smem;
-      float* next = act0 + T * sr0;
-      for (int l = 0; l < L - 1; ++l) {
-        const int in = dims.d[l], out = dims.d[l + 1], out4 = round4(out);
-        const float4* b4 = reinterpret_cast<const float4*>(layer);
-#pragma unroll
-        for (int j4 = 0; j4 < MAXW / 4; ++j4) {
-          if (4 * j4 < out) {
-            const float4 b = b4[j4];
-            z[4 * j4] = b.x;
-            z[4 * j4 + 1] = b.y;
-            z[4 * j4 + 2] = b.z;
-            z[4 * j4 + 3] = b.w;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < MAXW; ++i) {
-          if (i < in) {
-            const float ai = a[i];
-            const float4* w4 = reinterpret_cast<const float4*>(layer + (i + 1) * out4);
-#pragma unroll
-            for (int j4 = 0; j4 < MAXW / 4; ++j4) {
-              if (4 * j4 < out) {
-                const float4 w = w4[j4];
-                z[4 * j4] = fmaf(ai, w.x, z[4 * j4]);
-                z[4 * j4 + 1] = fmaf(ai, w.y, z[4 * j4 + 1]);
-                z[4 * j4 + 2] = fmaf(ai, w.z, z[4 * j4 + 2]);
-                z[4 * j4 + 3] = fmaf(ai, w.w, z[4 * j4 + 3]);
-              }
-            }
-          }
-        }
-        // pad lanes of z are 0: zero bias and weight pads
-        float4* zrow = reinterpret_cast<float4*>(next + t * srow(out));
-#pragma unroll
-        for (int j4 = 0; j4 < MAXW / 4; ++j4) {
-          if (4 * j4 < out)
-            zrow[j4] = make_float4(z[4 * j4], z[4 * j4 + 1], z[4 * j4 + 2], z[4 * j4 + 3]);
-        }
-#pragma unroll
-        for (int j = 0; j < MAXW; ++j) {
-          if (j < out) a[j] = sinf(w0 * z[j]);
-        }
-        layer += (in + 1) * out4;
-        next += T * srow(out);
       }
     }
+    __syncthreads();  // every warp's activation rows are in
 
-    // ---- backward, layer L-1 down to 0
-    const float* layer = smem + w_floats;  // one past the last layer's weights
-    float* act_end = dzb;                  // one past the last activation buffer
-    int goff = 0;
-    for (int l = 0; l < L; ++l) goff += (dims.d[l] + 1) * dims.d[l + 1];
-    for (int l = L - 1; l >= 0; --l) {
-      const int in = dims.d[l], out = dims.d[l + 1];
-      const int out4 = round4(out), sri = srow(in), sro = srow(out);
-      layer -= (in + 1) * out4;
-      float* act = act_end - T * sri;
-      act_end = act;
-      goff -= (in + 1) * out;
-
-      // own row: z_{l-1} -> a_l in place, keeping w0 cos(w0 z_{l-1})
-      float c[MAXW];
-      if (l > 0) {
-        float4* arow = reinterpret_cast<float4*>(act + t * sri);
+    // ---- backward, layer L-1 down to 0; dz_l lives in dzb[l & 1] for l < L-1
+    float dz[NT][4];
+    load_c(dz, smem + lay.dyb[cur] + 16 * warp * lay.sdy, lay.sdy, outL, lane);
 #pragma unroll
-        for (int i4 = 0; i4 < MAXW / 4; ++i4) {
-          if (4 * i4 < in) {
-            float4 v = arow[i4];
-            float sv, cv;
-            sincosf(w0 * v.x, &sv, &cv);
-            v.x = sv;
-            c[4 * i4] = w0 * cv;
-            sincosf(w0 * v.y, &sv, &cv);
-            v.y = sv;
-            c[4 * i4 + 1] = w0 * cv;
-            sincosf(w0 * v.z, &sv, &cv);
-            v.z = sv;
-            c[4 * i4 + 2] = w0 * cv;
-            sincosf(w0 * v.w, &sv, &cv);
-            v.w = sv;
-            c[4 * i4 + 3] = w0 * cv;
-            arow[i4] = v;
+    for (int l = MAXL - 1; l >= 0; --l) {
+      if (l < L) {
+        const int in = W[l], out = W[l + 1];
+        float da[NT][4];
+        layer_backward(dz, da, smem + lay.w_off[l], in, out, lane);
+        // dz_{l-1} (or dx) into the other dz tile: its last readers, dW_{l+1}, are
+        // behind the previous barrier
+        float* zt = smem + lay.dzb[(l + 1) & 1] + 16 * warp * lay.sz;
+        if (l > 0) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) dz[nt][i] = da[nt][i] * cs[l > 0 ? l - 1 : 0][nt][i];
           }
-        }
-      }
-      // own row of dz_l, and da_l = dz_l W_l^T for this pixel
-      float dz[MAXW], da[MAXW];
-      const float4* dzrow = reinterpret_cast<const float4*>(dzb + t * sro);
-#pragma unroll
-      for (int j4 = 0; j4 < MAXW / 4; ++j4) {
-        if (4 * j4 < out) {
-          const float4 v = dzrow[j4];
-          dz[4 * j4] = v.x;
-          dz[4 * j4 + 1] = v.y;
-          dz[4 * j4 + 2] = v.z;
-          dz[4 * j4 + 3] = v.w;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MAXW; ++i) {
-        da[i] = 0.f;
-        if (i < in) {
-          const float4* w4 = reinterpret_cast<const float4*>(layer + (i + 1) * out4);
-          float acc = 0.f;
-#pragma unroll
-          for (int j4 = 0; j4 < MAXW / 4; ++j4) {
-            if (4 * j4 < out) {
-              const float4 w = w4[j4];
-              acc = fmaf(dz[4 * j4], w.x, acc);
-              acc = fmaf(dz[4 * j4 + 1], w.y, acc);
-              acc = fmaf(dz[4 * j4 + 2], w.z, acc);
-              acc = fmaf(dz[4 * j4 + 3], w.w, acc);
-            }
-          }
-          da[i] = acc;
-        }
-      }
-      __syncthreads();  // every a_l row and dz_l row is in place
-
-      // dW_l (rows 1..in) and db_l (row 0) over this tile's pixels, in order
-      const int q4 = out4 / 4, nq = (in + 1) * q4;
-      const float4* dz4 = reinterpret_cast<const float4*>(dzb);
-      for (int q = t; q < nq; q += T) {
-        const int r = q / q4, j4 = q - r * q4;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r == 0) {
-          for (int p = 0; p < nv; ++p) {
-            const float4 d = dz4[p * (sro / 4) + j4];
-            acc.x += d.x;
-            acc.y += d.y;
-            acc.z += d.z;
-            acc.w += d.w;
-          }
+          store_c(dz, zt, lay.sz, in, lane);
         } else {
-          for (int p = 0; p < nv; ++p) {
-            const float av = act[p * sri + r - 1];
-            const float4 d = dz4[p * (sro / 4) + j4];
-            acc.x = fmaf(av, d.x, acc.x);
-            acc.y = fmaf(av, d.y, acc.y);
-            acc.z = fmaf(av, d.z, acc.z);
-            acc.w = fmaf(av, d.w, acc.w);
-          }
+          store_c(da, zt, lay.sz, in0, lane);
+          __syncwarp();
+          const int pw = p0 + 16 * warp, rows = min(16, P - pw);
+          if (rows > 0)
+            store_rows(dxs + (size_t)pw * in0, zt, lay.sz, in0, rows, x_vec4, lane, 32);
         }
-        float* g = dth + goff + r * out + 4 * j4;
-        const float v[4] = {acc.x, acc.y, acc.z, acc.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (4 * j4 + k < out) g[k] = p0 == 0 ? v[k] : g[k] + v[k];
-        }
-      }
-      __syncthreads();  // done reading dz_l and a_l
-
-      // own row: dz_{l-1} = da_l * w0 cos(w0 z_{l-1}); at layer 0, dx
-      float4* orow = reinterpret_cast<float4*>(l > 0 ? dzb + t * sri : act0 + t * sr0);
-#pragma unroll
-      for (int i4 = 0; i4 < MAXW / 4; ++i4) {
-        if (4 * i4 < in) {
-          if (l > 0)
-            orow[i4] = make_float4(da[4 * i4] * c[4 * i4], da[4 * i4 + 1] * c[4 * i4 + 1],
-                                   da[4 * i4 + 2] * c[4 * i4 + 2],
-                                   da[4 * i4 + 3] * c[4 * i4 + 3]);
-          else
-            orow[i4] = make_float4(da[4 * i4], da[4 * i4 + 1], da[4 * i4 + 2], da[4 * i4 + 3]);
-        }
+        // dW_l, db_l over the tile, reading the shared a_l and dz_l tiles
+        const float* A = smem + (l == 0 ? lay.xb[cur] : lay.act[l]);
+        const int sA = l == 0 ? lay.sx : lay.sa[l];
+        const float* Z = smem + (l == L - 1 ? lay.dyb[cur] : lay.dzb[l & 1]);
+        const int sZ = l == L - 1 ? lay.sdy : lay.sz;
+        dw_tile<MAXW / 16>(A, sA, Z, sZ, in, out, T, warp, warps, lane,
+                           lay.acc >= 0 ? smem + lay.acc + 128 * lay.tile0[l] : nullptr,
+                           smem + lay.dbp[l], dth + lay.g_off[l], it == 0);
+        __syncthreads();  // dz_l and a_l are free; dz_{l-1} is in
       }
     }
-    __syncthreads();  // the dx tile is in act0
-    for (int k = t; k < nv * in0; k += T) {
-      const int r = k / in0, c = k - r * in0;
-      dxs[(size_t)p0 * in0 + k] = act0[r * sr0 + c];
+  }
+  cp_async_wait<0>();
+
+  // ---- dtheta: db from the per-lane partials, dW from the owners' accumulators
+  for (int l = 0; l < L; ++l) {
+    const int in = W[l], out = W[l + 1];
+    const float* p = smem + lay.dbp[l];
+    for (int j = tid; j < out; j += nthreads)
+      dth[lay.g_off[l] + j] = ((p[4 * j] + p[4 * j + 1]) + p[4 * j + 2]) + p[4 * j + 3];
+    if (lay.acc >= 0) {
+      const int g = lane >> 2, t = lane & 3, nts = round8(out) >> 3;
+      const int n_t = (round16(in) >> 4) * nts;
+      for (int j = warp; j < n_t; j += warps) {
+        const int mt = j / nts, nt = j - mt * nts;
+        const float4 v =
+            reinterpret_cast<const float4*>(smem + lay.acc + 128 * lay.tile0[l])[j * 32 + lane];
+        const float vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 16 * mt + g + 8 * (i >> 1), c = 8 * nt + 2 * t + (i & 1);
+          if (r < in && c < out) dth[lay.g_off[l] + out + r * out + c] = vals[i];
+        }
+      }
     }
   }
 }
 
-template <int MAXW>
+template <int MAXW, int MAXL, int... FIX>
+static cudaError_t allow_smem(size_t smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(siren_bwd_kernel<MAXW, MAXL, FIX...>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+             : cudaSuccess;
+}
+
+// The most warps (64-, 32- or 16-pixel tiles) whose buffers fit, with the
+// dW accumulator in shared memory if any does, else in dtheta; 0 if none.
+static int plan(const SirenDims& dims, BwdLayout& lay) {
+  for (int acc_in_smem = 1; acc_in_smem >= 0; --acc_in_smem) {
+    for (int w = BWD_MAX_WARPS; w >= 1; w /= 2) {
+      lay = bwd_layout(dims, w, acc_in_smem);
+      if (sizeof(float) * (size_t)lay.total <= SMEM_LIMIT) return w;
+    }
+  }
+  return 0;
+}
+
+template <int MAXW, int MAXL, int... FIX>
 static cudaError_t launch(const float* x, const float* theta, const float* dy, float* dx,
                           float* dtheta, int B, int P, int theta_stride, const SirenDims& dims,
-                          float w0, int threads, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(siren_bwd_kernel<MAXW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  siren_bwd_kernel<MAXW><<<B, threads, smem, stream>>>(x, theta, dy, dx, dtheta, P,
-                                                       theta_stride, dims, w0);
+                          const BwdLayout& lay, float w0, int threads, int x_vec4, int dy_vec4,
+                          cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)lay.total;
+  cudaError_t e = allow_smem<MAXW, MAXL, FIX...>(smem);
+  if (e != cudaSuccess) return e;
+  siren_bwd_kernel<MAXW, MAXL, FIX...><<<B, threads, smem, stream>>>(
+      x, theta, dy, dx, dtheta, P, theta_stride, dims, lay, w0, x_vec4, dy_vec4);
   return cudaGetLastError();
 }
 
@@ -345,38 +374,48 @@ static cudaError_t launch(const float* x, const float* theta, const float* dy, f
 extern "C" int siren_bwd(const void* x, const void* theta, const void* dy, void* dx,
                          void* dtheta, int B, int P, int n_layers, const void* dims_host,
                          int theta_stride, float w0, void* stream) {
-  if (n_layers < 1 || n_layers > SIREN_MAX_LAYERS || B < 0 || P < 0)
-    return (int)cudaErrorInvalidValue;
   SirenDims dims;
-  dims.n_layers = n_layers;
-  const int* d = static_cast<const int*>(dims_host);
-  int maxw = 0, need = 0;
-  for (int l = 0; l <= n_layers; ++l) {
-    if (d[l] < 1 || d[l] > SIREN_MAX_WIDTH) return (int)cudaErrorInvalidValue;
-    dims.d[l] = d[l];
-    maxw = d[l] > maxw ? d[l] : maxw;
-  }
-  for (int l = 0; l < n_layers; ++l) need += (d[l] + 1) * d[l + 1];
-  if (theta_stride < need) return (int)cudaErrorInvalidValue;
+  if (!read_dims(n_layers, dims_host, dims) || B < 0 || P < 0 ||
+      theta_stride < theta_floats(dims))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || P == 0) return (int)cudaSuccess;
-  // the largest tile (128, 64 or 32 pixels) whose buffers fit in shared memory
-  int threads = BWD_MAX_THREADS;
-  size_t smem = 0;
-  for (; threads >= 32; threads /= 2) {
-    smem = sizeof(float) * (size_t)(weight_floats(dims) + tile_floats(dims, threads));
-    if (smem <= SMEM_LIMIT) break;
-  }
-  if (threads < 32) return (int)cudaErrorInvalidValue;
+  BwdLayout lay;
+  const int warps = plan(dims, lay);
+  if (!warps) return (int)cudaErrorInvalidValue;
+  const int x_vec4 = (dims.d[0] % 4 == 0) && ((uintptr_t)x % 16 == 0) && ((uintptr_t)dx % 16 == 0);
+  const int dy_vec4 = (dims.d[n_layers] % 4 == 0) && ((uintptr_t)dy % 16 == 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* tf = static_cast<const float*>(theta);
   const float* dyf = static_cast<const float*>(dy);
   float* dxf = static_cast<float*>(dx);
   float* dtf = static_cast<float*>(dtheta);
-  cudaError_t e =
-      maxw <= 32 ? launch<32>(xf, tf, dyf, dxf, dtf, B, P, theta_stride, dims, w0, threads,
-                              smem, st)
-                 : launch<64>(xf, tf, dyf, dxf, dtf, B, P, theta_stride, dims, w0, threads,
-                              smem, st);
+  return (int)(cifar_widths(dims)
+                    ? launch<32, 4, 32, 32, 3>(xf, tf, dyf, dxf, dtf, B, P, theta_stride, dims,
+                                               lay, w0, 32 * warps, x_vec4, dy_vec4, st)
+                    : launch<64, 8>(xf, tf, dyf, dxf, dtf, B, P, theta_stride, dims, lay, w0,
+                                    32 * warps, x_vec4, dy_vec4, st));
+}
+
+// The launch plan for these widths, for reports: out[0] warps per block,
+// out[1] dynamic shared memory per block in bytes, out[2] blocks resident
+// per SM, out[3] 1 if the dW accumulator is in shared memory. Returns a
+// cudaError_t.
+extern "C" int siren_bwd_plan(int n_layers, const void* dims_host, int* out) {
+  SirenDims dims;
+  if (!read_dims(n_layers, dims_host, dims)) return (int)cudaErrorInvalidValue;
+  BwdLayout lay;
+  const int warps = plan(dims, lay);
+  if (!warps) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)lay.total;
+  const bool cifar = cifar_widths(dims);
+  cudaError_t e = cifar ? allow_smem<32, 4, 32, 32, 3>(smem) : allow_smem<64, 8>(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], cifar ? siren_bwd_kernel<32, 4, 32, 32, 3> : siren_bwd_kernel<64, 8>,
+        32 * warps, smem);
+  out[0] = warps;
+  out[1] = (int)smem;
+  out[3] = lay.acc >= 0;
   return (int)e;
 }

@@ -1,162 +1,187 @@
 // Per-sample SIREN forward for Hopper (sm_90a), plain C interface for ctypes.
 //
-// Replaces the TPU kernels recombiner_tpu/ops/fused_inr.py::_fwd_kernel and
-// recombiner_tpu/ops/pallas_inr.py::_kernel. For every sample s and pixel p:
-//   a_0 = x[s, p, :]
-//   z_l = a_l @ W_l[s] + b_l[s]
-//   a_{l+1} = sin(w0 * z_l)   (all layers but the last, which writes z_l)
-// and only the output y[s, p, :] is written to device memory.
+// Replaces the TPU kernels recombiner_tpu/ops/fused_inr.py::_fwd_kernel
+// (groups of samples: samples_per_block > 1) and
+// recombiner_tpu/ops/pallas_inr.py::_kernel (one sample per program:
+// samples_per_block = 1, the main path). For every sample s and pixel p:
+//   a_0 = x[s, p, :],  z_l = a_l @ W_l[s] + b_l[s],
+//   a_{l+1} = sin(w0 z_l)  (all layers but the last, which writes z_l),
+// and only y[s, p, :] is written to device memory. theta[s] holds, layer
+// after layer, [b_l (out), W_l (in x out, row-major)]: the layout of
+// recombiner_tpu/models/inr.py::latent_to_weights.
 //
-// Parameters arrive packed per sample as the A-transformed weight latents:
-// theta[s] is, layer after layer, [b_l (out), W_l (in x out, row-major)],
-// the layout of recombiner_tpu/models/inr.py::latent_to_weights.
+// Design (the building blocks, and how the 3xTF32 split and the fragment
+// permutation work, are in siren_mma.cuh's note; the forward has no sums
+// across pixels):
+// - A block of four warps owns a sample (or a group of samples) and a chunk
+//   of up to 1,024 / samples_per_block pixels. It stages each sample's
+//   weights in shared memory once (in the CIFAR instance split into TF32
+//   hi and lo parts in fragment order), and its warps walk the chunk's
+//   16-pixel tiles, tile w, w + 4, ... for warp w: at CIFAR one block
+//   covers a whole sample, so its weights are staged once per sample (four
+//   times before).
+// - Each warp runs the chain on its tile in registers: every layer product
+//   is an m16n8k8 3xTF32 tensor-core tile product, the output's C fragment
+//   becomes the next layer's A fragment by the fragment permutation, and
+//   sin(w0 z) is taken once per unit in between, on siren_mma.cuh's
+//   branch-free path (as accurate as the library's sinf, which w0 = 30
+//   needs: the arguments lie far outside __sinf's accurate range; no
+//   --use_fast_math), so the compiler interleaves a tile's 16 sines.
+// - Two instances: CIFAR's widths fixed at compile time (every guard and
+//   stride a constant, weights staged pre-split), and widths read at run
+//   time, up to 64 in up to 8 layers (weights staged as f32: pre-split
+//   planes at those widths would not fit in shared memory).
+// - x tiles arrive by cp.async, double-buffered per warp: the next tile's
+//   copy (16 rows, one contiguous 2 KB run at CIFAR, 16-byte copies) is in
+//   flight while this one computes. y leaves through a shared staging tile
+//   as coalesced stores of the contiguous 16 x out run.
+// - No block barrier inside the pixel loop: a warp only reads what it copied.
 //
-// Design: one block per (sample group, pixel tile of 256). The block stages
-// one sample's W/b in shared memory (3,267 floats at CIFAR widths), each
-// row padded to a multiple of 4 so a thread reads 4 weights with one
-// broadcast 16-byte load: every thread of the block reads the same address,
-// so the load is one shared-memory wavefront for 4 FMAs. Each thread owns one
-// pixel and keeps its activation row in registers; the layer widths are run
-// time values up to MAXW (32 or 64, chosen by the launcher), and the fully
-// unrolled width loops keep the register arrays in registers. Arithmetic is
-// FP32 FMA and the precise sinf: w0 = 30 gives arguments far outside the
-// range where __sinf is accurate, so this file is never built with
-// --use_fast_math.
-//
-// Bound (CIFAR decode, B = 500 samples, P = 1024, 32-32-32-32-3): 3,168 FMA
-// per pixel, 3.24 GFLOP in all, about 48 us at the H100's 67 TFLOP/s FP32;
-// 78 MB of x, theta and y, about 23 us at 3.35 TB/s. So it is bound by
-// operations, not bytes.
+// Bound on the H100 (CIFAR decode, B = 500, P = 1,024, 32-32-32-32-3): 3,168
+// multiply-adds per pixel, 3.24 GFLOP: 0.0484 ms at the 67 TFLOP/s FP32 FMA
+// peak, 0.0197 ms as 3xTF32 (3 x 3.24 GFLOP at 495 TFLOP/s TF32); 78.2 MB of
+// x, theta and y: 0.0233 ms at 3.35 TB/s. So at f32 accuracy it is bound by
+// bytes. The sines (96 per pixel, about 20 instructions each) are not
+// counted in either bound. What holds it above that bound is instruction
+// issue: the sines take about a third of its time, the second and third
+// TF32 passes about a quarter (scripts/torch_siren_variants.py; PERF.md
+// §6). Staging the weights pre-split takes the B operands' splits off
+// the loop, at 49.6 KB per block: four blocks (sixteen warps) per SM.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "siren_mma.cuh"
 
-#define SIREN_MAX_LAYERS 8
-#define SIREN_MAX_WIDTH 64
-#define SIREN_THREADS 256
+#define FWD_WARPS 4
+#define FWD_PIXELS_PER_SAMPLE_BLOCK 1024
 
-struct SirenDims {
-  int n_layers;
-  int d[SIREN_MAX_LAYERS + 1];
+// Shared-memory layout (floats), computed on the host.
+struct FwdLayout {
+  int w_off[SIREN_MAX_LAYERS];  // staged weights of layer l
+  int bufs;                     // first per-warp buffer; everything below is weights
+  int sx, sy;                   // row strides of the x and y tiles
+  int warp_floats;              // per warp: two x tiles, then one y tile
+  int total;
 };
 
-static __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
+// presplit: the weights staged by stage_split_weights (the CIFAR instance),
+// else by stage_weights.
+static FwdLayout fwd_layout(const SirenDims& dims, bool presplit) {
+  FwdLayout lay = {};
+  int off = 0;
+  for (int l = 0; l < dims.n_layers; ++l) {
+    lay.w_off[l] = off;
+    off += presplit ? split_layer_floats(dims.d[l], dims.d[l + 1])
+                    : layer_floats(dims.d[l], dims.d[l + 1]);
+  }
+  lay.bufs = round4(off);
+  lay.sx = frag_stride(dims.d[0]);
+  lay.sy = frag_stride(dims.d[dims.n_layers]);
+  lay.warp_floats = 2 * 16 * lay.sx + 16 * lay.sy;
+  lay.total = lay.bufs + FWD_WARPS * lay.warp_floats;
+  return lay;
+}
 
-template <int MAXW>
-__global__ void __launch_bounds__(SIREN_THREADS)
+template <int MAXW, int MAXL, int IN0 = 0, int HID = 0, int OUT = 0>
+__global__ void __launch_bounds__(FWD_WARPS * 32, 4)
 siren_fwd_kernel(const float* __restrict__ x, const float* __restrict__ theta,
-                 float* __restrict__ y, int B, int P, int theta_stride,
-                 SirenDims dims, float w0, int samples_per_block, int x_vec4) {
+                 float* __restrict__ y, int B, int P, int theta_stride, SirenDims dims,
+                 FwdLayout lay, float w0, int samples_per_block, int chunk, int x_vec4,
+                 int y_vec4) {
+  constexpr int NT = MAXW / 8;
+  constexpr bool PRESPLIT = IN0 > 0;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Widths<MAXL, IN0, HID, OUT> W{dims};
+  const int L = W.layers(), in0 = W[0], outL = W[L];
 
-  const int p = blockIdx.y * SIREN_THREADS + threadIdx.x;
-  const int in0 = dims.d[0];
-  const int out_last = dims.d[dims.n_layers];
+  float* xbuf = smem + lay.bufs + warp * lay.warp_floats;  // two tiles of 16 x sx
+  float* ybuf = xbuf + 2 * 16 * lay.sx;
+  // pad columns of the x tiles are read as zeros and never copied into
+  for (int i = lane; i < 2 * 16 * lay.sx; i += 32) xbuf[i] = 0.f;
+  __syncwarp();
+
+  const int p_begin = blockIdx.y * chunk;
+  const int n_pix = min(P - p_begin, chunk);
+  const int n_tiles = (n_pix + 15) >> 4;
 
   for (int si = 0; si < samples_per_block; ++si) {
     const int s = blockIdx.x * samples_per_block + si;
     if (s >= B) break;  // the same for every thread of the block
-
-    // stage theta[s]: per layer, row 0 is the bias, rows 1..in the weights
-    __syncthreads();  // the previous sample's readers are done
-    const float* th = theta + (size_t)s * theta_stride;
-    int src = 0, dst = 0;
-    for (int l = 0; l < dims.n_layers; ++l) {
-      const int out = dims.d[l + 1], out4 = round4(out);
-      const int n = (dims.d[l] + 1) * out4;
-      for (int t = threadIdx.x; t < n; t += SIREN_THREADS) {
-        const int r = t / out4, c = t - r * out4;
-        smem[dst + t] = c < out ? th[src + r * out + c] : 0.f;
-      }
-      src += (dims.d[l] + 1) * out;
-      dst += n;
-    }
+    __syncthreads();    // the previous sample's readers of the weights are done
+    if constexpr (PRESPLIT)
+      stage_split_weights(smem, lay.w_off, theta + (size_t)s * theta_stride, dims, tid,
+                          FWD_WARPS * 32);
+    else
+      stage_weights(smem, lay.w_off, theta + (size_t)s * theta_stride, dims, tid,
+                    FWD_WARPS * 32);
     __syncthreads();
-    if (p >= P) continue;
 
-    float a[MAXW], z[MAXW];
-    const float* xp = x + ((size_t)s * P + p) * in0;
-    if (x_vec4) {
-#pragma unroll
-      for (int i4 = 0; i4 < MAXW / 4; ++i4) {
-        if (4 * i4 < in0) {
-          const float4 v = reinterpret_cast<const float4*>(xp)[i4];
-          a[4 * i4] = v.x;
-          a[4 * i4 + 1] = v.y;
-          a[4 * i4 + 2] = v.z;
-          a[4 * i4 + 3] = v.w;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < MAXW; ++i) {
-        if (i < in0) a[i] = xp[i];
-      }
-    }
+    const float* xs = x + ((size_t)s * P + p_begin) * in0;
+    float* ys = y + ((size_t)s * P + p_begin) * outL;
+    if (warp < n_tiles)
+      copy_rows_async(xbuf, lay.sx, xs + (size_t)warp * 16 * in0, in0, 16,
+                      n_pix - warp * 16, x_vec4, lane, 32);
+    cp_async_commit();
+    for (int it = warp, k = 0; it < n_tiles; it += FWD_WARPS, ++k) {
+      const int next = it + FWD_WARPS;
+      if (next < n_tiles)
+        copy_rows_async(xbuf + ((k + 1) & 1) * 16 * lay.sx, lay.sx,
+                        xs + (size_t)next * 16 * in0, in0, 16, n_pix - next * 16, x_vec4,
+                        lane, 32);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncwarp();
 
-    const float* layer = smem;
-    for (int l = 0; l < dims.n_layers; ++l) {
-      const int in = dims.d[l], out = dims.d[l + 1], out4 = round4(out);
-      const float4* b4 = reinterpret_cast<const float4*>(layer);
+      float a[NT][4];
+      load_c(a, xbuf + (k & 1) * 16 * lay.sx, lay.sx, in0, lane);
 #pragma unroll
-      for (int j4 = 0; j4 < MAXW / 4; ++j4) {
-        if (4 * j4 < out) {
-          const float4 b = b4[j4];
-          z[4 * j4] = b.x;
-          z[4 * j4 + 1] = b.y;
-          z[4 * j4 + 2] = b.z;
-          z[4 * j4 + 3] = b.w;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MAXW; ++i) {
-        if (i < in) {
-          const float ai = a[i];
-          const float4* w4 = reinterpret_cast<const float4*>(layer + (i + 1) * out4);
-#pragma unroll
-          for (int j4 = 0; j4 < MAXW / 4; ++j4) {
-            if (4 * j4 < out) {
-              const float4 w = w4[j4];
-              z[4 * j4] = fmaf(ai, w.x, z[4 * j4]);
-              z[4 * j4 + 1] = fmaf(ai, w.y, z[4 * j4 + 1]);
-              z[4 * j4 + 2] = fmaf(ai, w.z, z[4 * j4 + 2]);
-              z[4 * j4 + 3] = fmaf(ai, w.w, z[4 * j4 + 3]);
-            }
+      for (int l = 0; l < MAXL; ++l) {
+        if (l < L) {
+          float z[NT][4];
+          if constexpr (PRESPLIT)
+            layer_forward_presplit(a, z, smem + lay.w_off[l], W[l], W[l + 1], lane);
+          else
+            layer_forward(a, z, smem + lay.w_off[l], W[l], W[l + 1], lane);
+          if (l < L - 1) {
+            float unused[NT][4];
+            sin_cos_tile(z, round8(W[l + 1]) >> 3, w0, a, unused);
+          } else {
+            store_c(z, ybuf, lay.sy, outL, lane);
           }
         }
       }
-      const bool last = l == dims.n_layers - 1;
-#pragma unroll
-      for (int j = 0; j < MAXW; ++j) {
-        if (j < out) a[j] = last ? z[j] : sinf(w0 * z[j]);
-      }
-      layer += (in + 1) * out4;
+      __syncwarp();
+      const int rows = min(16, n_pix - it * 16);
+      store_rows(ys + (size_t)it * 16 * outL, ybuf, lay.sy, outL, rows, y_vec4, lane, 32);
+      __syncwarp();  // this x tile and the y tile are free for the next copies
     }
-
-    float* yp = y + ((size_t)s * P + p) * out_last;
-#pragma unroll
-    for (int j = 0; j < MAXW; ++j) {
-      if (j < out_last) yp[j] = a[j];
-    }
+    cp_async_wait<0>();
+    __syncwarp();
   }
 }
 
-template <int MAXW>
+template <int MAXW, int MAXL, int... FIX>
+static cudaError_t allow_smem(size_t smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(siren_fwd_kernel<MAXW, MAXL, FIX...>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+             : cudaSuccess;
+}
+
+template <int MAXW, int MAXL, int... FIX>
 static cudaError_t launch(const float* x, const float* theta, float* y, int B, int P,
-                          int theta_stride, const SirenDims& dims, float w0,
-                          int samples_per_block, int x_vec4, size_t smem,
+                          int theta_stride, const SirenDims& dims, const FwdLayout& lay,
+                          float w0, int samples_per_block, int x_vec4, int y_vec4,
                           cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(siren_fwd_kernel<MAXW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((B + samples_per_block - 1) / samples_per_block,
-                  (P + SIREN_THREADS - 1) / SIREN_THREADS);
-  siren_fwd_kernel<MAXW><<<grid, SIREN_THREADS, smem, stream>>>(
-      x, theta, y, B, P, theta_stride, dims, w0, samples_per_block, x_vec4);
+  const size_t smem = sizeof(float) * (size_t)lay.total;
+  cudaError_t e = allow_smem<MAXW, MAXL, FIX...>(smem);
+  if (e != cudaSuccess) return e;
+  int chunk = (FWD_PIXELS_PER_SAMPLE_BLOCK / samples_per_block) & ~15;
+  if (chunk < 64) chunk = 64;
+  const dim3 grid((B + samples_per_block - 1) / samples_per_block, (P + chunk - 1) / chunk);
+  siren_fwd_kernel<MAXW, MAXL, FIX...><<<grid, FWD_WARPS * 32, smem, stream>>>(
+      x, theta, y, B, P, theta_stride, dims, lay, w0, samples_per_block, chunk, x_vec4,
+      y_vec4);
   return cudaGetLastError();
 }
 
@@ -166,35 +191,40 @@ static cudaError_t launch(const float* x, const float* theta, float* y, int B, i
 extern "C" int siren_fwd(const void* x, const void* theta, void* y, int B, int P,
                          int n_layers, const void* dims_host, int theta_stride, float w0,
                          int samples_per_block, void* stream) {
-  if (n_layers < 1 || n_layers > SIREN_MAX_LAYERS || samples_per_block < 1 || B < 0 ||
-      P < 0)
-    return (int)cudaErrorInvalidValue;
   SirenDims dims;
-  dims.n_layers = n_layers;
-  const int* d = static_cast<const int*>(dims_host);
-  int maxw = 0, need = 0;
-  size_t smem_floats = 0;
-  for (int l = 0; l <= n_layers; ++l) {
-    if (d[l] < 1 || d[l] > SIREN_MAX_WIDTH) return (int)cudaErrorInvalidValue;
-    dims.d[l] = d[l];
-    maxw = d[l] > maxw ? d[l] : maxw;
-  }
-  for (int l = 0; l < n_layers; ++l) {
-    need += (d[l] + 1) * d[l + 1];
-    smem_floats += (size_t)(d[l] + 1) * round4(d[l + 1]);
-  }
-  if (theta_stride < need) return (int)cudaErrorInvalidValue;
+  if (!read_dims(n_layers, dims_host, dims) || samples_per_block < 1 || B < 0 || P < 0 ||
+      theta_stride < theta_floats(dims))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || P == 0) return (int)cudaSuccess;
-  const size_t smem = smem_floats * sizeof(float);
-  const int x_vec4 = (d[0] % 4 == 0) && ((uintptr_t)x % 16 == 0);
+  const bool cifar = cifar_widths(dims);
+  const FwdLayout lay = fwd_layout(dims, cifar);
+  if (sizeof(float) * (size_t)lay.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int x_vec4 = (dims.d[0] % 4 == 0) && ((uintptr_t)x % 16 == 0);
+  const int y_vec4 = (dims.d[n_layers] % 4 == 0) && ((uintptr_t)y % 16 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* tf = static_cast<const float*>(theta);
   float* yf = static_cast<float*>(y);
-  cudaError_t e =
-      maxw <= 32 ? launch<32>(xf, tf, yf, B, P, theta_stride, dims, w0, samples_per_block,
-                              x_vec4, smem, s)
-                 : launch<64>(xf, tf, yf, B, P, theta_stride, dims, w0, samples_per_block,
-                              x_vec4, smem, s);
+  return (int)(cifar ? launch<32, 4, 32, 32, 3>(xf, tf, yf, B, P, theta_stride, dims, lay, w0,
+                                                 samples_per_block, x_vec4, y_vec4, s)
+                      : launch<64, 8>(xf, tf, yf, B, P, theta_stride, dims, lay, w0,
+                                      samples_per_block, x_vec4, y_vec4, s));
+}
+
+// The launch plan for these widths, for reports: out[0] warps per block,
+// out[1] dynamic shared memory per block in bytes, out[2] blocks resident
+// per SM. Returns a cudaError_t.
+extern "C" int siren_fwd_plan(int n_layers, const void* dims_host, int* out) {
+  SirenDims dims;
+  if (!read_dims(n_layers, dims_host, dims)) return (int)cudaErrorInvalidValue;
+  const bool cifar = cifar_widths(dims);
+  const size_t smem = sizeof(float) * (size_t)fwd_layout(dims, cifar).total;
+  cudaError_t e = cifar ? allow_smem<32, 4, 32, 32, 3>(smem) : allow_smem<64, 8>(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], cifar ? siren_fwd_kernel<32, 4, 32, 32, 3> : siren_fwd_kernel<64, 8>,
+        FWD_WARPS * 32, smem);
+  out[0] = FWD_WARPS;
+  out[1] = (int)smem;
   return (int)e;
 }

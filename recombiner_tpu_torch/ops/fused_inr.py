@@ -3,18 +3,21 @@
 The forward replaces the TPU kernels ``recombiner_tpu/ops/fused_inr.py::_fwd_kernel``
 (sample groups x pixel tiles) and ``recombiner_tpu/ops/pallas_inr.py::_kernel``
 (one sample per program): both become launches of one CUDA kernel,
-``ops/csrc/siren_fwd.cu``, with ``samples_per_block`` samples per block and
-256 pixels per block (one pixel per thread). The backward replaces
-``recombiner_tpu/ops/fused_inr.py::_bwd_kernel`` with ``ops/csrc/siren_bwd.cu``
-(one block per sample, the forward recomputed on chip, dW/db summed over
-pixel tiles in a fixed order), wired into autograd by ``SirenMLP`` as the
-JAX package's ``custom_vjp`` wires its pair.
+``ops/csrc/siren_fwd.cu``, with ``samples_per_block`` samples per block. The
+backward replaces ``recombiner_tpu/ops/fused_inr.py::_bwd_kernel`` with
+``ops/csrc/siren_bwd.cu`` (one block per sample, the forward recomputed on
+chip, dW/db summed over pixel tiles in a fixed order), wired into autograd by
+``SirenMLP`` as the JAX package's ``custom_vjp`` wires its pair. Both run
+every layer product on the tensor cores as a 3xTF32 split, close to f32
+accuracy (``ops/csrc/siren_mma.cuh``).
 
-Bound on the H100: operations. At CIFAR decode (B = 500, P = 1024) the chain
-is 3.24 GFLOP of FP32 FMA, about 48 us at 67 TFLOP/s, against 78 MB of
-inputs and output, about 23 us at 3.35 TB/s. The kernel keeps every
-intermediate activation in registers and each sample's weights in shared
-memory, so only x, the weights and y touch device memory.
+Bound on the H100 at f32 accuracy: at CIFAR decode (B = 500, P = 1024) the
+forward moves 78 MB (0.023 ms at 3.35 TB/s) for 3.24 GFLOP (0.020 ms as
+3xTF32 at 495 TFLOP/s): bytes. The backward at CIFAR encode (B = 2,500) does
+48.2 GFLOP (0.29 ms as 3xTF32) for 751 MB (0.22 ms): operations. The kernels
+keep every intermediate activation on chip and each sample's weights in
+shared memory, so only x, the weights, y (and dy, dx, dtheta) touch device
+memory.
 
 The learned A-transform stays a dense ``torch.matmul`` (cuBLAS), as the JAX
 package left it to XLA, and autograd carries dtheta back through it.
@@ -26,7 +29,7 @@ the plain PyTorch versions of the same functions, only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -35,9 +38,8 @@ from recombiner_tpu_torch.config import ModalityConfig
 from recombiner_tpu_torch.models.inr import latent_to_weights, slice_layer
 from recombiner_tpu_torch.ops import _build
 
-MAX_WIDTH = 64  # SIREN_MAX_WIDTH in siren_fwd.cu
+MAX_WIDTH = 64  # SIREN_MAX_WIDTH in csrc/siren_mma.cuh
 MAX_LAYERS = 8  # SIREN_MAX_LAYERS
-PIXELS_PER_BLOCK = 256  # SIREN_THREADS
 
 # Launches of each CUDA kernel, counted where it is launched and nowhere else.
 launches = {"siren_fwd": 0, "siren_bwd": 0}
@@ -93,8 +95,10 @@ def siren_backward_reference(x: torch.Tensor, theta: torch.Tensor, dy: torch.Ten
     return da, torch.cat(grads[::-1], dim=1)
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
+def kernel_lib(name: str, csrc_dir: Optional[str] = None) -> ctypes.CDLL:
+    """The kernel library ``name`` (built from ``csrc_dir``, by default the
+    package's sources) with its entry point's C signature declared."""
+    lib = _build.load(name, csrc_dir)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     if name == "siren_fwd":
@@ -155,7 +159,7 @@ def siren_forward(x: torch.Tensor, theta: torch.Tensor, dims: Sequence[int], w0:
     dims_c = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib("siren_fwd").siren_fwd(
+        rc = kernel_lib("siren_fwd").siren_fwd(
             x.data_ptr(), theta.data_ptr(), y.data_ptr(), B, P, len(dims) - 1,
             ctypes.cast(dims_c, ctypes.c_void_p), theta.shape[1], float(w0),
             int(samples_per_block), stream,
@@ -189,7 +193,7 @@ def siren_backward(x: torch.Tensor, theta: torch.Tensor, dy: torch.Tensor,
     dims_c = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib("siren_bwd").siren_bwd(
+        rc = kernel_lib("siren_bwd").siren_bwd(
             x.data_ptr(), theta.data_ptr(), dy.data_ptr(), dx.data_ptr(), dtheta.data_ptr(),
             B, P, len(dims) - 1, ctypes.cast(dims_c, ctypes.c_void_p), theta.shape[1],
             float(w0), stream,

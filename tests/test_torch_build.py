@@ -1,6 +1,7 @@
 """The nvcc + ctypes build raises on every failure; nothing falls back."""
 
 import os
+import shutil
 import stat
 
 import pytest
@@ -70,3 +71,47 @@ def test_build_all_starts_one_nvcc_per_source_together(fresh_build, monkeypatch)
     assert sorted(os.listdir(marks)) == ["siren_bwd.cu", "siren_fwd.cu"]
     assert all(os.path.exists(b.path) for b in built.values())
     assert built["siren_bwd"].path != built["siren_fwd"].path
+
+
+def test_a_changed_header_changes_the_library_path(fresh_build, monkeypatch, tmp_path):
+    """Both kernels include the shared header csrc/siren_mma.cuh, so its
+    bytes are part of every library's tag: an edited header cannot load a
+    stale library."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("siren_fwd.cu", "siren_mma.cuh"):
+        shutil.copy(os.path.join(_build.CSRC_DIR, name), csrc / name)
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    _fake_nvcc(fresh_build / "cuda" / "bin",
+               'prev=""; for a; do [ "$prev" = "-o" ] && touch "$a"; prev=$a; done\n')
+    monkeypatch.setenv("CUDA_HOME", str(fresh_build / "cuda"))
+    first = _build.build("siren_fwd").path
+    with open(csrc / "siren_mma.cuh", "a") as f:
+        f.write("\n// edited\n")
+    monkeypatch.setattr(_build, "_built", {})
+    second = _build.build("siren_fwd").path
+    assert first != second and os.path.exists(first) and os.path.exists(second)
+
+
+def test_sources_from_another_directory_share_or_get_their_own_library(fresh_build,
+                                                                       monkeypatch, tmp_path):
+    """Copies of the sources in another directory (as the variant timings make)
+    build through the same path: an identical copy shares the package's
+    library and its nvcc, an edited one gets a library of its own."""
+    calls = fresh_build / "calls"
+    _fake_nvcc(fresh_build / "cuda" / "bin",
+               f'echo x >> {calls}\n'
+               'prev=""; for a; do [ "$prev" = "-o" ] && touch "$a"; prev=$a; done\n')
+    monkeypatch.setenv("CUDA_HOME", str(fresh_build / "cuda"))
+    same, edited = tmp_path / "same", tmp_path / "edited"
+    for d in (same, edited):
+        shutil.copytree(_build.CSRC_DIR, d)
+    with open(edited / "siren_mma.cuh", "a") as f:
+        f.write("\n// edited\n")
+    srcs = [_build.source("siren_fwd"), _build.source("siren_fwd", str(same)),
+            _build.source("siren_fwd", str(edited))]
+    built = _build.build_sources(srcs)
+    assert len(calls.read_text().split()) == 2
+    assert built[srcs[0]].path == built[srcs[1]].path != built[srcs[2]].path
+    assert _build.build_all(["siren_fwd"], str(edited))["siren_fwd"] is built[srcs[2]]
+    assert len(calls.read_text().split()) == 2  # nothing rebuilt

@@ -25,6 +25,7 @@ import torch
 
 from recombiner_tpu.coding import encoder as jenc
 from recombiner_tpu.coding import progressive as jprog
+from recombiner_tpu.cli import compress as jax_compress_cli
 from recombiner_tpu.coding.gumbel import gumbel_chain as jax_gumbel_chain
 from recombiner_tpu.config import TINY as JTINY
 from recombiner_tpu.coords import grid_fourier_features
@@ -320,9 +321,9 @@ def test_cli_compress_on_png_dir(tmp_path):
     y = decompress_cli.main(["--bitstream", str(out / "bitstream_test_id_0.rctb"),
                              "--prior_path", prior, "--save_dir", str(out), "--device", "cpu"])
     np.testing.assert_allclose(y, res.reconstruction, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="--fused_steps"):
+    with pytest.raises(NotImplementedError, match="--remat"):
         compress_cli.main(["--test_dir", str(images), "--test_idx", "0", "--prior_path", prior,
-                           "--save_dir", str(out), "--fused_steps", "8"])
+                           "--save_dir", str(out), "--remat"])
     with pytest.raises(NotImplementedError, match="schedule adaptive"):
         compress_cli.main(["--test_dir", str(images), "--test_idx", "0", "--prior_path", prior,
                            "--save_dir", str(out), "--schedule", "adaptive"])
@@ -366,3 +367,48 @@ def test_optimize_runs_in_exact_f32(setup, monkeypatch):
                      sample_size=1)
     assert seen == [(False, False)] * 2
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+
+
+_CLI_BASE = ["--test_dir", "d", "--test_idx", "0", "--prior_path", "p.npz", "--save_dir", "o"]
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--no-remat"],
+    ["--no-finetune_crn"],
+    ["--no-remat", "--no-finetune_crn", "--sync_every", "1", "--save_every", "10",
+     "--p1_monitor", "mse", "--fused_steps", "8", "--n_devices", "1", "--precision", "highest"],
+])
+def test_cli_takes_the_jax_clis_reference_invocations(extra):
+    """The JAX CLI's default invocation and its --no-* forms parse in both
+    packages with equal values for every shared flag, and the port runs
+    them (no flag names an unported value)."""
+    jargs = vars(jax_compress_cli.parse_args(_CLI_BASE + extra))
+    args = vars(compress_cli.parse_args(_CLI_BASE + extra))
+    assert set(jargs) == set(args)
+    assert jargs == args
+    assert compress_cli.unported(compress_cli.parse_args(_CLI_BASE + extra)) == []
+
+
+@pytest.mark.parametrize("extra,queue", [
+    (["--remat"], "remat"),
+    (["--finetune_crn"], "finetune common random numbers"),
+    (["--state_path", "s.npz"], "io/encode_state resume"),
+    (["--n_devices", "2"], "scale-out"),
+    (["--p1_stop", "2000", "2e-3", "8000"], "optimize_adaptive"),
+    (["--ft_stop", "40", "1e-3", "80"], "optimize_adaptive"),
+    (["--p1_lr", "6e-4", "2e-5"], "the adaptive/quality presets"),
+    (["--p1_samples", "3"], "the adaptive/quality presets"),
+    (["--ft_lr", "4e-4"], "the fused coding path"),
+    (["--ft_lr_schedule", "cosine"], "the fused coding path"),
+    (["--schedule", "quality"], "the adaptive/quality presets"),
+    (["--precision", "default"], "precision modes"),
+])
+def test_cli_raises_on_each_value_the_port_does_not_run(extra, queue):
+    """Each value that would change what the port runs raises before any
+    work, naming its flag and the queue that ports it; the JAX CLI parses
+    the same invocation."""
+    jax_compress_cli.parse_args(_CLI_BASE + extra)
+    with pytest.raises(NotImplementedError, match=extra[0]) as e:
+        compress_cli.main(_CLI_BASE + extra)
+    assert queue in str(e.value)

@@ -64,8 +64,10 @@ def test_kernel_matches_plain_version(cuda, name, B, P, spb):
     torch.testing.assert_close(got, want, **TOL)
 
 
-def test_kernel_takes_widths_up_to_64(cuda):
-    dims = [64, 64, 40, 7]
+@pytest.mark.parametrize("dims", [[64, 64, 40, 7], [34, 32, 32, 32, 3], [5, 7, 3]])
+def test_kernel_takes_widths_up_to_64(cuda, dims):
+    """Widths up to 64, and widths that are not multiples of 8 (video's
+    34-wide input, [5, 7, 3]), which the kernel pads to tensor-core tiles."""
     B, P = 4, 300
     x = torch.randn(B, P, dims[0], device=cuda)
     theta = 0.05 * torch.randn(B, fused_inr.theta_size(dims), device=cuda)
