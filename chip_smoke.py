@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: CIFAR decode and encode
-(reference schedule) at R = 500.
+"""Smoke run of the PyTorch port on one CUDA card: CIFAR decode, and encode
+on the reference, adaptive and quality schedules with a crash and a
+resume, at R = 500.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases (each prints its seconds; any failure exits non-zero, nothing is
-caught and passed over):
+caught and passed over but the crashes phase 12 simulates):
 
 1. the card: name and power limit from nvidia-smi;
 2. build both CUDA kernels (ops/csrc/siren_fwd.cu, ops/csrc/siren_bwd.cu,
@@ -41,7 +42,30 @@ caught and passed over):
    and, beside it, the FP32-FMA bound of earlier runs;
 8. ten decodes and ten encode epochs under torch.profiler: device busy
    time, the idle share against the wall time of the same profiled calls,
-   and the kernels that take the time.
+   and the kernels that take the time;
+9. the conv stacks: the phase-decomposed stack held against the plain one
+   on the card, then epoch_s (S = 5) and decode wall time under each, in
+   turns, the stack that ``mappings.lpe_to_pe`` uses, and ten epochs of the
+   other stack under the profiler;
+10. determinism: two 20-epoch ``optimize`` runs from one state and one
+   generator state must agree bit for bit (``coding/encoder.py``'s claim);
+   beside it, the same runs with cuDNN's own choice of algorithms in place
+   of ``deterministic_convs``, and epoch_s under each;
+11. the adaptive encode: ``compress`` on ``ADAPTIVE_PRESET``'s knobs at
+   R = 500 with the ceilings and windows cut (ADAPTIVE below); both stop
+   tests must fire; the launch counts read around it; the bitstream read
+   back and decoded on the card equal to compress's reconstruction; and
+   epoch_s at S = 3;
+12. the quality preset with a crash and a resume (QUALITY below): once
+   without interruption, then with ``state_path`` and a snapshot writer
+   that raises after the first phase-1 snapshot, resumed through the CLI's
+   ``resume_from``, crashed again after the first coding-loop snapshot,
+   and resumed again; the final indices and posteriors must equal the
+   uninterrupted run's bit for bit.
+
+Cuts (depth only; every phase runs CIFAR's full widths, R = 500 rows, all
+125 groups coded): ENCODE_* for the reference schedule; ADAPTIVE and
+QUALITY for the presets (``recombiner_tpu_torch/cli/compress.py``).
 
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -64,15 +88,19 @@ import time
 import numpy as np
 import torch
 
+from recombiner_tpu_torch.cli.compress import resume_from
 from recombiner_tpu_torch.coding import encoder, progressive
 from recombiner_tpu_torch.coding.decoder import decode, init_codec
 from recombiner_tpu_torch.config import CIFAR
 from recombiner_tpu_torch.coords import grid_fourier_features
 from recombiner_tpu_torch.device import exact_f32
+from recombiner_tpu_torch.io import encode_state
 from recombiner_tpu_torch.io.bitstream import read_bitstream, write_bitstream
-from recombiner_tpu_torch.io.checkpoint import LevelArtifact, PriorArtifact
+from recombiner_tpu_torch.io.checkpoint import LevelArtifact, PriorArtifact, prior_fingerprint
 from recombiner_tpu_torch.metrics import metric
+from recombiner_tpu_torch.models import mappings
 from recombiner_tpu_torch.models.gaussian import Gaussian
+from recombiner_tpu_torch.models.upsample import apply_upsample, apply_upsample_phased
 from recombiner_tpu_torch.ops import _build
 from recombiner_tpu_torch.ops import fused_inr
 from recombiner_tpu_torch.priors.grouping import compute_grouping
@@ -84,6 +112,22 @@ SAMPLE_SIZE = 5  # cli/compress.py --sample_size default
 # groups are coded inside the time limit.
 ENCODE_PHASE1_EPOCHS = 40
 ENCODE_FINETUNE_EPOCHS = 1
+# ADAPTIVE_PRESET's knobs (S = 3 cosine-lr phase 1 from 6e-4 to 2e-5,
+# plateau stops at its rel_tols, 8 steps per chunk) with its ceilings and
+# windows cut: phase 1 15,000 -> 400 epochs, window 2,000 -> 50, min 8,000
+# -> 100; finetunes 240 -> 16 epochs, window 40 -> 4, min 80 -> 8.
+ADAPTIVE = dict(n_optimize_epochs=400, phase1_lr=(6e-4, 2e-5), phase1_sample_size=3,
+                phase1_stop=(50, 2e-3, 100), finetune_stop=(4, 1e-3, 8), fused_steps=8,
+                finetune_overrides={"w": 16})
+# QUALITY_PRESET's knobs (S = 5, cosine finetune lr 4e-4) cut further:
+# phase 1 -> 200 epochs in snapshot chunks of 50, window 50, min 100;
+# finetunes -> 4 epochs, window 2, min 2.
+QUALITY = dict(n_optimize_epochs=200, phase1_lr=(6e-4, 2e-5), phase1_stop=(50, 2e-3, 100),
+               finetune_stop=(2, 1e-3, 2), fused_steps=8, finetune_lr=4e-4,
+               finetune_lr_schedule="cosine", finetune_overrides={"w": 4}, chunk_epochs=50)
+# the phase-decomposed conv stack against the plain one on the card: the
+# same exact-f32 function with each output summed in another order
+STACK_TOL = dict(atol=1e-5, rtol=1e-5)
 # siren_fwd vs plain version on the card: f32 FMA order differs from
 # cuBLAS's, and w0 = 30 scales each layer's rounding difference by ~30
 # through three sin layers.
@@ -292,6 +336,111 @@ def device_time_by_kernel(fn, n: int):
         raise AssertionError("torch.profiler recorded no device time")
     return total, wall_us, by_kernel
 
+
+@contextlib.contextmanager
+def stack(fn):
+    """``mappings.lpe_to_pe`` on the conv stack ``fn`` for the duration."""
+    saved = mappings.STACK
+    mappings.STACK = fn
+    try:
+        yield
+    finally:
+        mappings.STACK = saved
+
+
+def zero_launches() -> None:
+    torch.cuda.synchronize()
+    for k in fused_inr.launches:
+        fused_inr.launches[k] = 0
+
+
+def read_launches(epochs: int, what: str) -> dict:
+    """The launch counts since ``zero_launches``: siren_bwd once per epoch,
+    siren_fwd once per epoch plus the final decode at least."""
+    torch.cuda.synchronize()
+    launched = dict(fused_inr.launches)
+    print(f"kernel launches in {what}: {launched}; epochs run {epochs}")
+    if launched["siren_bwd"] != epochs or launched["siren_fwd"] < epochs + 1:
+        raise AssertionError(f"{what} did not launch siren_bwd once per epoch and siren_fwd "
+                             "once per epoch plus the decode")
+    return launched
+
+
+def wall_s(fn, reps: int) -> float:
+    """Host seconds per call of ``fn`` after one warm call, synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def check_bitstream(codec, res, X, cfg, art, what: str) -> int:
+    """Write ``res``'s bitstream, read it back, decode it on the card: the
+    reconstruction must equal compress's exactly. Returns the byte count."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bitstream_test_id_0.rctb")
+        nbytes = write_bitstream(path, res.indices, config_name=cfg.name,
+                                 codebook_seed=art.codebook_seed,
+                                 codebook_kind=art.codebook_kind,
+                                 bits_per_group=cfg.bits_per_group)
+        _, idx_back = read_bitstream(path)
+    y_back = decode(codec, idx_back, X, cfg).cpu().numpy()
+    if not np.isfinite(y_back).all() or not np.array_equal(y_back, res.reconstruction):
+        raise AssertionError(f"{what}: the decoded bitstream is not compress's reconstruction")
+    print(f"{what}: bitstream {nbytes} bytes, read back and decoded on the card: equal to "
+          "compress's reconstruction (exactly)")
+    return nbytes
+
+
+class Crash(RuntimeError):
+    """Raised by the replaced snapshot writer to simulate a crash."""
+
+
+@contextlib.contextmanager
+def crash_after_first_snapshot(of: str):
+    """``encode_state.save_encode_state`` writes its snapshot, then raises
+    Crash at the first snapshot of ``of`` ('phase1' or 'coding')."""
+    save = encode_state.save_encode_state
+
+    def crashing(path, state, **kw):
+        save(path, state, **kw)
+        if ("level" in kw["extra"]) == (of == "coding"):
+            raise Crash(of)
+
+    encode_state.save_encode_state = crashing
+    try:
+        yield
+    finally:
+        encode_state.save_encode_state = save
+
+
+def same_posteriors(a, b) -> bool:
+    return torch.equal(a.w.q.loc, b.w.q.loc) and torch.equal(a.w.q.log_scale, b.w.q.log_scale)
+
+
+def determinism(codec, state0, X, Y, cfg, seed: int) -> dict:
+    """Whether two 20-epoch optimize runs from one state and generator state
+    agree bit for bit, as optimize runs them (cuDNN restricted to
+    deterministic algorithms) and with cuDNN's own choice of algorithms,
+    and epoch_s under each."""
+    def run(n=20):
+        g = torch.Generator(device=codec.device).manual_seed(seed)
+        return encoder.optimize(codec, state0, X, Y, cfg, g, n_epochs=n,
+                                sample_size=SAMPLE_SIZE)
+
+    out = {"default": same_posteriors(run(), run()),
+           "epoch_s_default": wall_s(lambda: run(10), 1) / 10}
+    restricted = encoder.deterministic_convs
+    encoder.deterministic_convs = contextlib.nullcontext
+    try:
+        out["cudnn_choice"] = same_posteriors(run(), run())
+        out["epoch_s_cudnn_choice"] = wall_s(lambda: run(10), 1) / 10
+    finally:
+        encoder.deterministic_convs = restricted
+    return out
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -558,6 +707,121 @@ def main(argv=None) -> int:
         for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
             print(f"  {us / 1e3 / n_prof:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name[:100]}")
 
+    with phase("conv stacks"), exact_f32():
+        lpe = torch.randn(N_ROWS * SAMPLE_SIZE, *cfg.lpe_spatial, cfg.latent_dim, generator=gen,
+                          device="cuda")
+        args_up = (cfg.data_dim, cfg.layerwise_scale_factors, cfg.paddings)
+        plain_pe = apply_upsample(codec.up, lpe, *args_up)
+        phase_pe = apply_upsample_phased(codec.up, lpe, *args_up)
+        torch.cuda.synchronize()
+        stack_err = (phase_pe - plain_pe).abs().max().item()
+        print(f"phase stack vs plain stack on the card, {tuple(lpe.shape)} -> "
+              f"{tuple(plain_pe.shape)}: max abs diff {stack_err:.3e} (atol {STACK_TOL['atol']}, "
+              f"rtol {STACK_TOL['rtol']})")
+        torch.testing.assert_close(phase_pe, plain_pe, **STACK_TOL)
+        del lpe, plain_pe, phase_pe
+        stacks = {"plain": apply_upsample, "phase": apply_upsample_phased}
+        stack_times = {name: {"epoch_s": [], "decode_s": []} for name in stacks}
+        for name in ("plain", "phase", "phase", "plain"):
+            with stack(stacks[name]):
+                stack_times[name]["epoch_s"].append(wall_s(lambda: epochs(10), 1) / 10)
+                stack_times[name]["decode_s"].append(wall_s(lambda: decode(codec, idx, X, cfg),
+                                                            5))
+        for name, t in stack_times.items():
+            print(f"{name} stack: epoch_s {t['epoch_s'][0]:.6f} / {t['epoch_s'][1]:.6f}, decode "
+                  f"{1e3 * t['decode_s'][0]:.3f} / {1e3 * t['decode_s'][1]:.3f} ms (R={N_ROWS}, "
+                  f"S={SAMPLE_SIZE}, exact f32; runs in the order plain, phase, phase, plain) "
+                  f"[{card}]")
+        print(f"mappings.lpe_to_pe uses: {mappings.STACK.__name__}")
+        other = next(n for n, f in stacks.items() if f is not mappings.STACK)
+        with stack(stacks[other]):
+            busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: epochs(1), n_prof)
+        print(f"{other} stack, {n_prof} epochs under the profiler: {busy_us / 1e3 / n_prof:.3f} ms "
+              f"device time per epoch in {wall_us / 1e3 / n_prof:.3f} ms wall (the epoch profile "
+              "above is the other stack's)")
+        for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"  {us / 1e3 / n_prof:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name[:100]}")
+
+    with phase("determinism"):
+        det = determinism(codec, state0, X, Y, cfg, args.seed)
+        print(f"two 20-epoch optimize runs from one state and generator state (R={N_ROWS}, "
+              f"S={SAMPLE_SIZE}): bitwise equal {det['default']} on deterministic cuDNN "
+              f"algorithms (epoch_s {det['epoch_s_default']:.6f}), {det['cudnn_choice']} on "
+              f"cuDNN's own choice (epoch_s {det['epoch_s_cudnn_choice']:.6f}) [{card}]")
+        if not det["default"]:
+            raise AssertionError("two optimize runs from one state and generator state differ on "
+                                 "the card: coding/encoder.py's determinism claim fails")
+
+    with phase("adaptive encode"):
+        zero_launches()
+        t0 = time.perf_counter()
+        res_a = progressive.compress(codec, state0, X, Y, cfg,
+                                     torch.Generator(device="cuda").manual_seed(args.seed),
+                                     sample_size=SAMPLE_SIZE, **ADAPTIVE)
+        torch.cuda.synchronize()
+        adaptive_s = time.perf_counter() - t0
+        ta = res_a.timings
+        launched_ad = read_launches(ta["phase1_epochs"] + ta["finetune_epochs"], "adaptive encode")
+        p1_fired = ta["phase1_epochs"] < ADAPTIVE["n_optimize_epochs"]
+        ft_fired = ta["finetune_epochs"] < ta["finetune_budget"]
+        print(f"adaptive encode R={N_ROWS}: phase 1 {ta['phase1_epochs']} of "
+              f"{ADAPTIVE['n_optimize_epochs']} epochs (S=3; stop fired {p1_fired}); finetunes "
+              f"{ta['finetune_epochs']} of a budget of {ta['finetune_budget']} epochs (a stop "
+              f"fired {ft_fired}); wall {adaptive_s:.3f} s (optimize {ta['optimize_s']:.3f} s, "
+              f"code {ta['code_s']:.3f} s); mean PSNR {np.mean(res_a.distortion):.4f} dB @ "
+              f"{res_a.bitrate:.4f} bpp [{card}]")
+        if not (p1_fired and ft_fired and res_a.state.w.compressed.all()):
+            raise AssertionError("the adaptive encode's stop tests did not both fire, or it left "
+                                 "groups uncoded")
+        check_bitstream(codec, res_a, X, cfg, art, "adaptive encode")
+        epoch_s3 = wall_s(lambda: encoder.optimize(codec, state0, X, Y, cfg, gen_enc,
+                                                   n_epochs=10, sample_size=3), 1) / 10
+        print(f"epoch_s at S=3 {epoch_s3:.6f} (R={N_ROWS}, mean of 10 warm epochs) [{card}]")
+
+    with phase("quality encode, crash and resume"):
+        def quality(state, **kw):
+            return progressive.compress(codec, state, X, Y, cfg,
+                                        torch.Generator(device="cuda").manual_seed(args.seed),
+                                        sample_size=SAMPLE_SIZE, **QUALITY, **kw)
+
+        zero_launches()
+        t0 = time.perf_counter()
+        res_q = quality(state0)
+        torch.cuda.synchronize()
+        quality_s = time.perf_counter() - t0
+        tq = res_q.timings
+        launched_q = read_launches(tq["phase1_epochs"] + tq["finetune_epochs"], "quality encode")
+        print(f"quality encode R={N_ROWS}: phase 1 {tq['phase1_epochs']} epochs, finetunes "
+              f"{tq['finetune_epochs']} of {tq['finetune_budget']}; wall {quality_s:.3f} s; mean "
+              f"PSNR {np.mean(res_q.distortion):.4f} dB @ {res_q.bitrate:.4f} bpp [{card}]")
+        check_bitstream(codec, res_q, X, cfg, art, "quality encode")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "enc_state.npz")
+            extra = {"state_path": path, "state_extra": {"prior_fingerprint":
+                                                         prior_fingerprint(art)}}
+            resume, state = {}, state0
+            for crash_in in ("phase1", "coding"):
+                with crash_after_first_snapshot(crash_in):
+                    try:
+                        quality(state, **extra, **resume)
+                        raise AssertionError(f"no snapshot was taken in {crash_in}")
+                    except Crash:
+                        pass
+                resume, state = resume_from(path, art, "cuda")
+                print(f"crashed after the first {crash_in} snapshot; resuming at phase-1 epoch "
+                      f"{resume['phase1_epochs_done']}, {int(state.w.compressed.sum(1).max())} "
+                      "groups coded")
+            res_r = quality(state, **extra, **resume)
+        indices_equal = np.array_equal(res_r.indices["w"], res_q.indices["w"])
+        posteriors_equal = same_posteriors(res_r.state, res_q.state)
+        print(f"resumed twice vs uninterrupted: indices bitwise equal {indices_equal}, "
+              f"posteriors bitwise equal {posteriors_equal}")
+        check_bitstream(codec, res_r, X, cfg, art, "resumed quality encode")
+        if not res_r.state.w.compressed.all():
+            raise AssertionError("the resumed encode left groups uncoded")
+        if not (indices_equal and posteriors_equal):
+            raise AssertionError("the resumed encode differs from the uninterrupted one")
+
     kernels = [{
         "name": "siren_fwd",
         "route": "cuda",
@@ -566,7 +830,9 @@ def main(argv=None) -> int:
         "also_replaces": "recombiner_tpu/ops/pallas_inr.py:40",
         "held_against": "recombiner_tpu_torch/ops/fused_inr.py::siren_forward_reference",
         "launches": launched_enc["siren_fwd"],
-        "launches_by_path": {"decode": launched["siren_fwd"], "encode": launched_enc["siren_fwd"]},
+        "launches_by_path": {"decode": launched["siren_fwd"], "encode": launched_enc["siren_fwd"],
+                             "adaptive_encode": launched_ad["siren_fwd"],
+                             "quality_encode": launched_q["siren_fwd"]},
         "max_abs_err": max(errs),
         "ms": ms[1],
         "ms_8_samples_per_block": ms[8],
@@ -583,7 +849,9 @@ def main(argv=None) -> int:
         "replaces": "recombiner_tpu/ops/fused_inr.py:67",
         "held_against": "recombiner_tpu_torch/ops/fused_inr.py::siren_backward_reference",
         "launches": launched_enc["siren_bwd"],
-        "launches_by_path": {"decode": launched["siren_bwd"], "encode": launched_enc["siren_bwd"]},
+        "launches_by_path": {"decode": launched["siren_bwd"], "encode": launched_enc["siren_bwd"],
+                             "adaptive_encode": launched_ad["siren_bwd"],
+                             "quality_encode": launched_q["siren_bwd"]},
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
@@ -599,7 +867,9 @@ def main(argv=None) -> int:
           "recombiner_tpu/ops/fused_inr.py::_bwd_kernel), held against siren_backward_reference "
           f"at {BWD_OF_MAX} of the largest gradient entry")
     print(f"encode: epoch_s {epoch_s:.6f}, code_step_s {code_step_s:.6f}, epoch peak memory "
-          f"{epoch_peak / 2**20:.1f} MiB, epoch idle share {epoch_idle:.4f} [{card}]")
+          f"{epoch_peak / 2**20:.1f} MiB, epoch idle share {epoch_idle:.4f}, epoch_s at S=3 "
+          f"{epoch_s3:.6f}, adaptive encode {adaptive_s:.3f} s, quality encode "
+          f"{quality_s:.3f} s [{card}]")
     print(f"total: {time.perf_counter() - t_all:.2f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

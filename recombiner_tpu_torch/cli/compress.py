@@ -1,10 +1,12 @@
 """Compression CLI of the port, flag-compatible with
-``recombiner_tpu/cli/compress.py`` on its reference schedule: encode one test
-batch on the CUDA card (or, with ``--device cpu``, on the CPU) and write the
-same ``Distortion_*.csv``, ``GroupIndex_*.csv`` and ``.rctb`` bitstream.
+``recombiner_tpu/cli/compress.py``: encode one test batch on the CUDA card
+(or, with ``--device cpu``, on the CPU) on the reference, adaptive or
+quality schedule, resumable from ``--state_path``, and write the same
+``Distortion_*.csv``, ``GroupIndex_*.csv`` and ``.rctb`` bitstream.
 
     python -m recombiner_tpu_torch.cli.compress --test_dir DIR --test_idx 0 \\
-        --prior_path out/PRIOR_....npz --save_dir out/
+        --prior_path out/PRIOR_....npz --save_dir out/ [--schedule adaptive] \\
+        [--state_path out/enc_state.npz]
 """
 
 from __future__ import annotations
@@ -19,23 +21,20 @@ from recombiner_tpu_torch.coding.decoder import init_codec
 from recombiner_tpu_torch.coding.progressive import compress
 from recombiner_tpu_torch.data.load_data import load_test_set
 from recombiner_tpu_torch.device import resolve_device
+from recombiner_tpu_torch.io import encode_state
+from recombiner_tpu_torch.io.atomic import load_snapshot_or_none
 from recombiner_tpu_torch.io.bitstream import write_bitstream
-from recombiner_tpu_torch.io.checkpoint import load_prior_artifact
+from recombiner_tpu_torch.io.checkpoint import (
+    accepted_fingerprints,
+    load_prior_artifact,
+    prior_fingerprint,
+)
 
 # The queue that ports each flag's values that the port does not run yet
 # (ROADMAP.md, port queue 1 unless named).
 _QUEUE = {
-    "schedule": "the adaptive/quality presets",
-    "state_path": "io/encode_state resume",
     "n_devices": "scale-out (queue 7)",
     "remat": "remat (queue 1 item 4)",
-    "finetune_crn": "finetune common random numbers",
-    "ft_lr": "the fused coding path",
-    "ft_lr_schedule": "the fused coding path",
-    "p1_stop": "optimize_adaptive",
-    "ft_stop": "optimize_adaptive",
-    "p1_lr": "the adaptive/quality presets",
-    "p1_samples": "the adaptive/quality presets",
     "precision": "precision modes (the port encodes in exact f32)",
 }
 
@@ -62,9 +61,10 @@ def parse_args(argv=None):
     p.add_argument("--sample_size", type=int, default=5)
     p.add_argument("--finetune_epochs", type=int, default=None,
                    help="per-group finetune epochs (default: the reference schedule)")
-    p.add_argument("--state_path", default=None, help="not ported: encode-state snapshots")
-    p.add_argument("--save_every", type=int, default=10,
-                   help="snapshot cadence; only read with --state_path")
+    p.add_argument("--state_path", default=None,
+                   help="encode-state snapshot path: written every --save_every groups "
+                        "and resumed from if it exists")
+    p.add_argument("--save_every", type=int, default=10)
     p.add_argument("--n_devices", type=int, default=None,
                    help="data-parallel device count; the port encodes on one device")
     p.add_argument("--sync_every", type=int, default=1,
@@ -74,11 +74,14 @@ def parse_args(argv=None):
                    help="rematerialisation; the port stores activations (--no-remat or "
                         "the default)")
     p.add_argument("--finetune_crn", action=argparse.BooleanOptionalAction, default=None,
-                   help="one noise stream for every finetune; default off on non-patch "
-                        "configs, as the port runs")
+                   help="one noise stream for every coding finetune; default on for "
+                        "patch configs only")
     p.add_argument("--schedule", default="reference",
                    choices=("reference", "adaptive", "quality"),
-                   help="encode schedule; only 'reference' is ported")
+                   help="encode schedule: 'reference' (fixed budgets), 'adaptive' "
+                        "(S=3 cosine-lr phase 1 and finetunes up to a plateau) or "
+                        "'quality' (adaptive with S=5 phase 1 and cosine finetune lr 4e-4); "
+                        "explicit flags override the preset")
     p.add_argument("--ft_lr", type=float, default=None)
     p.add_argument("--ft_lr_schedule", default=None, choices=(None, "cosine"))
     p.add_argument("--p1_stop", type=float, nargs=3, default=None,
@@ -90,33 +93,94 @@ def parse_args(argv=None):
     p.add_argument("--p1_monitor", default="mse", choices=("mse", "loss"),
                    help="phase-1 plateau statistic; only read with --p1_stop")
     p.add_argument("--fused_steps", type=int, default=None,
-                   help="group steps per compiled program in the JAX package; "
-                        "bit-identical there, so the port accepts and ignores it")
+                   help="group steps per snapshot (the JAX package's fused coding "
+                        "path); changes no number")
     p.add_argument("--precision", default=None,
                    choices=("scoped", "scoped_high", "default", "high", "highest"),
                    help="the port runs exact f32 throughout: the default or 'highest'")
     return p.parse_args(argv)
 
 
+# Encode-schedule presets of the JAX package (recombiner_tpu/cli/compress.py:
+# 140-170), measured there on the CIFAR head-to-head: presets, not format
+# fields.
+ADAPTIVE_PRESET = {
+    "n_epochs": 15000,
+    "p1_lr": (6e-4, 2e-5),
+    "p1_samples": 3,
+    "p1_stop": (2000.0, 2e-3, 8000.0),
+    "ft_stop": (40.0, 1e-3, 80.0),
+    "fused_steps": 8,
+    "ft_lr": None,
+    "ft_lr_schedule": None,
+}
+QUALITY_PRESET = {
+    **ADAPTIVE_PRESET,
+    "p1_samples": None,  # S = --sample_size (the reference's 5)
+    "ft_lr": 4e-4,
+    "ft_lr_schedule": "cosine",
+}
+SCHEDULE_PRESETS = {"adaptive": ADAPTIVE_PRESET, "quality": QUALITY_PRESET}
+
+
+def resolve_schedule(args):
+    """Explicit flags beat the --schedule preset. Returns (n_epochs, p1_lr,
+    p1_samples, p1_stop, ft_stop, fused_steps, ft_lr, ft_lr_schedule);
+    'reference' leaves the reference's fixed budgets (30k phase-1 epochs,
+    main_compression.py:148)."""
+    knobs = {k: getattr(args, k, None) for k in ADAPTIVE_PRESET}
+    if args.schedule in SCHEDULE_PRESETS:
+        for k, v in SCHEDULE_PRESETS[args.schedule].items():
+            if knobs[k] is None:
+                knobs[k] = v
+    if knobs["n_epochs"] is None:
+        knobs["n_epochs"] = 30000  # main_compression.py:148
+    return tuple(knobs[k] for k in ("n_epochs", "p1_lr", "p1_samples", "p1_stop", "ft_stop",
+                                    "fused_steps", "ft_lr", "ft_lr_schedule"))
+
+
 def unported(args) -> list:
     """``--flag value (queue)`` for each given value that would make the port
     run something other than what it runs; empty when it runs them all."""
     bad = {
-        "schedule": args.schedule != "reference",
-        "state_path": args.state_path is not None,
         "n_devices": args.n_devices is not None and args.n_devices > 1,
         "remat": bool(args.remat),
-        "finetune_crn": bool(args.finetune_crn),
-        "ft_lr": args.ft_lr is not None,
-        "ft_lr_schedule": args.ft_lr_schedule is not None,
-        "p1_stop": args.p1_stop is not None,
-        "ft_stop": args.ft_stop is not None,
-        "p1_lr": args.p1_lr is not None,
-        "p1_samples": args.p1_samples not in (None, args.sample_size),
         "precision": args.precision not in (None, "highest"),
     }
     return [f"--{name} {getattr(args, name)} ({_QUEUE[name]})"
             for name, on in bad.items() if on]
+
+
+def resume_from(state_path: str, art, device):
+    """(keyword arguments of ``compress`` that continue the snapshot at
+    ``state_path``, the state to start from), or ({}, None) when there is
+    none to continue: the resume flow of ``recombiner_tpu/cli/compress.py``
+    with the port's generator state and the phase-1 window carry."""
+    dev = torch.device(device)
+    try:
+        loaded, reason = load_snapshot_or_none(
+            state_path,
+            lambda p: encode_state.load_encode_state_full(p, accepted_fingerprints(art),
+                                                          device=dev))
+    except encode_state.FingerprintMismatch as e:
+        # a snapshot from another prior: refusing beats a silently wrong
+        # bitstream (its frozen samples index the other prior's codebooks)
+        loaded, reason = None, str(e)
+    if reason:
+        print(f"WARNING: {reason}; encoding from scratch", flush=True)
+    if loaded is None:
+        return {}, None
+    state, header, opt_leaves = loaded
+    gen_state = encode_state.generator_state(header, dev)
+    if gen_state is None:
+        print(f"Snapshot {state_path} holds no {dev.type} generator state (written by the "
+              "JAX package or on another device): the noise stream restarts from --seed",
+              flush=True)
+    print(f"Resumed encode state from {state_path}", flush=True)
+    return {"phase1_epochs_done": int(header.get("phase1_epochs_done", 0)),
+            "phase1_opt_leaves": opt_leaves,
+            "phase1_es": header.get("phase1_es"),
+            "resume_generator_state": gen_state}, state
 
 
 def main(argv=None):
@@ -132,15 +196,33 @@ def main(argv=None):
     dev = resolve_device(args.device)
     X, Y = load_test_set(args.test_dir, args.test_idx, cfg)
     codec, state = init_codec(art, X.shape[0], device=dev)
+    resume = {}
+    if args.state_path:
+        resume, restored = resume_from(args.state_path, art, dev)
+        state = state if restored is None else restored
     print(f"Model initialized. Expected bitrate {cfg.bitrate_of_groups(codec.w.n_groups):.3f}",
           flush=True)
+    (n_epochs, p1_lr, p1_samples, p1_stop, ft_stop, fused_steps,
+     ft_lr, ft_lr_schedule) = resolve_schedule(args)
     result = compress(
         codec, state, X, Y, cfg, torch.Generator(device=dev).manual_seed(args.seed),
-        n_optimize_epochs=30000 if args.n_epochs is None else args.n_epochs, lr=args.lr,
-        sample_size=args.sample_size,
+        n_optimize_epochs=n_epochs, lr=args.lr, sample_size=args.sample_size,
+        phase1_stop=tuple(p1_stop) if p1_stop is not None else None,
+        finetune_stop=tuple(ft_stop) if ft_stop is not None else None,
+        phase1_monitor=args.p1_monitor,
+        phase1_lr=tuple(p1_lr) if p1_lr else None,
+        phase1_sample_size=p1_samples,
+        fused_steps=fused_steps,
+        finetune_lr=ft_lr,
+        finetune_lr_schedule=ft_lr_schedule,
         finetune_overrides=(None if args.finetune_epochs is None
                             else {"w": args.finetune_epochs}),
         verbose=True,
+        state_path=args.state_path,
+        save_every=args.save_every,
+        state_extra={"prior_fingerprint": prior_fingerprint(art)},
+        finetune_crn=args.finetune_crn,
+        **resume,
     )
 
     os.makedirs(args.save_dir, exist_ok=True)

@@ -1,6 +1,7 @@
 """The sender's half of ``recombiner_tpu/coding/encoder.py``: per-datapoint
-posterior optimisation (the MC-ELBO with per-group KL annealing, Adam) and
-one step of progressive A* coding, non-patch configs.
+posterior optimisation (the MC-ELBO with per-group KL annealing, Adam; for a
+fixed number of epochs or up to a plateau) and the steps of progressive A*
+coding with their finetunes, non-patch configs.
 
 The codec context, the state classes and ``predict`` live in
 ``coding/decoder.py``; this module changes a ``CodecState`` and returns a
@@ -9,9 +10,15 @@ differentiated path has no gathers; the coded (group-order) view is taken
 forward-only, through ``param2group``.
 
 Determinism: group KLs are summed over a padded (R, G, Gmax) window with a
-mask, not with ``index_add_``/``scatter_add_`` (atomics on CUDA), and the
+mask, not with ``index_add_``/``scatter_add_`` (atomics on CUDA), the
 SIREN chain's gradient comes from ``siren_bwd``, whose sums run in a fixed
-order, so an encode on one card repeats bit for bit given the generator.
+order, and the epochs run with cuDNN restricted to deterministic
+algorithms (``deterministic_convs``: its own choice for the conv stack's
+data gradient sums in no fixed order on the H100), so an encode on one
+card repeats bit for bit given the generator. ``chip_smoke.py`` checks it
+there: two 20-epoch ``optimize`` runs from one state and generator state,
+and a crashed and resumed encode against an uninterrupted one, agree bit
+for bit (PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from recombiner_tpu_torch.coding.decoder import (
     predict,
 )
 from recombiner_tpu_torch.config import ModalityConfig
-from recombiner_tpu_torch.device import exact_f32
+from recombiner_tpu_torch.device import deterministic_convs, exact_f32
 from recombiner_tpu_torch.models.gaussian import Gaussian, kl_gaussian, scale_transform
 
 LOG2 = math.log(2.0)
@@ -95,15 +102,20 @@ def update_betas(ls: LevelState, meta: LevelMeta, bits_per_group: float,
 # ------------------------------------------------------------ optimisation
 
 
+NoiseSource = Union[torch.Generator, Callable[[], Noise]]
+
+
 def elbo_loss(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
               cfg: ModalityConfig, sample_size: int,
               generator: Optional[torch.Generator] = None,
-              noise: Optional[Noise] = None) -> torch.Tensor:
-    """The MC-ELBO of ``_elbo_loss_fn``: mean squared error times the number
-    of rows, plus the beta-weighted KL."""
+              noise: Optional[Noise] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MC-ELBO of ``_elbo_loss_fn(with_aux=True)``: (mean squared error
+    times the number of rows plus the beta-weighted KL, that scaled mean
+    squared error). The second is the distortion term that
+    ``optimize_adaptive(monitor='mse')`` watches."""
     y_hat = predict(codec, state, X, cfg, sample_size, generator=generator, noise=noise)
     mse = torch.mean((y_hat - Y[:, None]) ** 2) * Y.shape[0]
-    return mse + beta_weighted_kl(state.w, codec.w)
+    return mse + beta_weighted_kl(state.w, codec.w), mse
 
 
 @dataclasses.dataclass
@@ -114,6 +126,28 @@ class AdamState:
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+
+    def leaves(self, scheduled: bool) -> List[np.ndarray]:
+        """The optax state's leaves in ``jax.tree_util`` order, as an encode
+        snapshot stores them: count, mu.loc, mu.log_scale, nu.loc,
+        nu.log_scale, and with a schedule (``_make_opt``'s chain) the
+        schedule's count after them."""
+        count = np.asarray(self.count, np.int32)
+        out = [count] + [t.detach().cpu().numpy() for t in self.mu + self.nu]
+        return out + [count] if scheduled else out
+
+    @classmethod
+    def from_leaves(cls, leaves: Sequence, scheduled: bool, device) -> "AdamState":
+        """Inverse of ``leaves``, from arrays of either package."""
+        if len(leaves) != (6 if scheduled else 5):
+            raise ValueError(f"{len(leaves)} optimizer leaves; Adam "
+                             f"{'with' if scheduled else 'without'} a schedule has "
+                             f"{6 if scheduled else 5}")
+        count = int(np.asarray(leaves[0]))
+        if scheduled and int(np.asarray(leaves[5])) != count:
+            raise ValueError("the schedule's step count differs from Adam's")
+        t = [torch.tensor(np.asarray(a, np.float32), device=device) for a in leaves[1:5]]
+        return cls(count, t[:2], t[2:])
 
 
 LearningRate = Union[float, Callable[[int], float]]
@@ -142,10 +176,11 @@ def adam_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], st:
               lr: LearningRate, b1: float = 0.9, b2: float = 0.999,
               eps: float = 1e-8) -> AdamState:
     """One Adam step with optax's semantics (``optax.adam``, or its chain with
-    ``scale_by_schedule`` when ``lr`` is a schedule of the step count):
-    bias-corrected moments, eps outside the square root. Updates ``params``
-    in place (they are the optimised leaves; in place saves a copy of the
-    posterior per epoch) and returns the new state."""
+    ``scale_by_schedule`` when ``lr`` is a schedule of the step count, read
+    before the count moves): bias-corrected moments, eps outside the square
+    root. Updates ``params`` in place (they are the optimised leaves; in
+    place saves a copy of the posterior per epoch) and returns the new
+    state."""
     count = st.count + 1
     bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
     bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
@@ -161,33 +196,107 @@ def adam_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], st:
     return AdamState(count, mu, nu)
 
 
-def optimize(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
-             cfg: ModalityConfig, generator: torch.Generator, *, n_epochs: int,
-             lr: LearningRate = 2e-4, sample_size: int = 5) -> CodecState:
-    """MC-ELBO posterior optimisation with beta annealing, in the order of
-    ``encoder.py:487-569``: each epoch takes the gradient first, then anneals
-    the betas when ``i % KL_ADJUST_GAP == 0`` (``i`` restarts at 0 in each
-    call), then takes the step of a fresh Adam. Fresh noise per epoch from
-    ``generator``. Runs in exact f32 (TF32 off in cuBLAS and cuDNN): the
-    port's one precision."""
+def _trainables(ls: LevelState) -> List[torch.Tensor]:
+    return [ls.q.loc.detach().clone().requires_grad_(),
+            ls.q.log_scale.detach().clone().requires_grad_()]
+
+
+def _settled(ls: LevelState, params: Sequence[torch.Tensor]) -> CodecState:
+    ls = dataclasses.replace(ls, q=Gaussian(params[0].detach(), params[1].detach()))
+    return CodecState(w=ls, h=None, hh=None)
+
+
+def _epoch(codec: Codec, ls: LevelState, params: List[torch.Tensor], X: torch.Tensor,
+           Y: torch.Tensor, cfg: ModalityConfig, source: NoiseSource, i: int,
+           opt_state: AdamState, lr: LearningRate, sample_size: int):
+    """One epoch of ``encoder.py:487-569``: the gradient first, then the
+    betas annealed when ``i % KL_ADJUST_GAP == 0`` (on the pre-step
+    posteriors), then the Adam step. Returns (state, Adam state, loss, scaled
+    mse), the last two detached."""
+    ls = dataclasses.replace(ls, q=Gaussian(*params))
+    drawn = ({"generator": source} if isinstance(source, torch.Generator)
+             else {"noise": source()})
+    loss, mse = elbo_loss(codec, CodecState(w=ls, h=None, hh=None), X, Y, cfg, sample_size,
+                          **drawn)
+    grads = torch.autograd.grad(loss, params)
+    if i % KL_ADJUST_GAP == 0:
+        ls = update_betas(ls, codec.w, cfg.bits_per_group)
+    opt_state = adam_step(params, grads, opt_state, lr)
+    return ls, opt_state, loss.detach(), mse.detach()
+
+
+def _check_ported(cfg: ModalityConfig) -> None:
     if cfg.patch:
         raise NotImplementedError("patch configs are not ported yet (ROADMAP.md, port "
                                   "queue: patch / kodak_mini)")
+
+
+def optimize(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
+             cfg: ModalityConfig, generator: NoiseSource, *, n_epochs: int,
+             lr: LearningRate = 2e-4, sample_size: int = 5,
+             opt_state: Optional[AdamState] = None, return_opt_state: bool = False):
+    """MC-ELBO posterior optimisation with beta annealing, in the order of
+    ``encoder.py:487-569`` (``_epoch``; ``i`` restarts at 0 in each call).
+    Adam starts fresh unless ``opt_state`` is given; with
+    ``return_opt_state`` the result is (state, Adam state), so one run can
+    be split into chunks without changing it. Fresh noise per epoch from
+    ``generator`` (or, in the tests, a callable that returns each epoch's
+    noise). Runs in exact f32 (TF32 off in cuBLAS and cuDNN), the port's
+    one precision, on deterministic cuDNN algorithms."""
+    _check_ported(cfg)
     ls = state.w
-    params = [ls.q.loc.detach().clone().requires_grad_(),
-              ls.q.log_scale.detach().clone().requires_grad_()]
-    opt_state = adam_init(params)
-    with exact_f32():
+    params = _trainables(ls)
+    opt_state = adam_init(params) if opt_state is None else opt_state
+    with exact_f32(), deterministic_convs():
         for i in range(n_epochs):
-            ls = dataclasses.replace(ls, q=Gaussian(*params))
-            loss = elbo_loss(codec, CodecState(w=ls, h=None, hh=None), X, Y, cfg, sample_size,
-                             generator=generator)
-            grads = torch.autograd.grad(loss, params)
-            if i % KL_ADJUST_GAP == 0:
-                ls = update_betas(ls, codec.w, cfg.bits_per_group)
-            opt_state = adam_step(params, grads, opt_state, lr)
-    ls = dataclasses.replace(ls, q=Gaussian(params[0].detach(), params[1].detach()))
-    return CodecState(w=ls, h=None, hh=None)
+            ls, opt_state, _, _ = _epoch(codec, ls, params, X, Y, cfg, generator, i, opt_state,
+                                         lr, sample_size)
+    out = _settled(ls, params)
+    return (out, opt_state) if return_opt_state else out
+
+
+def optimize_adaptive(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
+                      cfg: ModalityConfig, generator: NoiseSource, epoch0: int, max_epoch: int,
+                      min_epoch: float, rel_tol: float, es_carry: Tuple[float, float], *,
+                      lr: LearningRate = 2e-4, sample_size: int = 5, window: int = 25,
+                      opt_state: Optional[AdamState] = None, monitor: str = "loss"):
+    """``optimize`` that stops on a plateau (``encoder.py:580-685``): the same
+    epochs, from global epoch ``epoch0`` up to ``max_epoch``; after every
+    ``window``-th global epoch, once ``min_epoch`` epochs have run, stop
+    when the window's mean of the watched scalar (the loss, or with
+    ``monitor='mse'`` the scaled mse) improves on the previous window's by
+    less than ``rel_tol`` times its magnitude. ``i % KL_ADJUST_GAP`` and
+    the window boundaries use the global epoch, so chunks that thread
+    ``es_carry = (previous window mean, running window sum)`` (start:
+    (inf, 0.0)) and ``opt_state`` run as one call.
+
+    The window sum is an f32 tensor on the device, summed in epoch order,
+    and the test is evaluated in f32 as the JAX package's is; the host
+    reads it once per window. Returns (state, Adam state, es_carry as
+    floats, global epochs done, stopped)."""
+    _check_ported(cfg)
+    if monitor not in ("loss", "mse"):
+        raise ValueError(f"monitor must be 'loss' or 'mse', not {monitor!r}")
+    window = int(window)
+    ls = state.w
+    params = _trainables(ls)
+    opt_state = adam_init(params) if opt_state is None else opt_state
+    dev = ls.q.loc.device
+    prev, cur = (torch.tensor(float(v), dtype=torch.float32, device=dev) for v in es_carry)
+    tol = torch.tensor(float(rel_tol), dtype=torch.float32, device=dev)
+    i, stopped = int(epoch0), False
+    with exact_f32(), deterministic_convs():
+        while i < max_epoch and not stopped:
+            ls, opt_state, loss, mse = _epoch(codec, ls, params, X, Y, cfg, generator, i,
+                                              opt_state, lr, sample_size)
+            cur = cur + (mse if monitor == "mse" else loss)
+            i += 1
+            if i % window == 0:
+                win = cur / window
+                if i >= min_epoch:
+                    stopped = bool((prev - win < tol * win.abs()) & torch.isfinite(prev))
+                prev, cur = win, torch.zeros_like(cur)
+    return _settled(ls, params), opt_state, (prev.item(), cur.item()), i, stopped
 
 
 # ----------------------------------------------------------- encode step
@@ -249,3 +358,64 @@ def encode_step(codec: Codec, state: CodecState, level: str = "w") -> CodecState
         raise NotImplementedError("levels h and hh come with the patch configs (ROADMAP.md, "
                                   "port queue: patch / kodak_mini)")
     return dataclasses.replace(state, w=encode_step_level(state.w, codec.w))
+
+
+# ------------------------------------------------------- the coding loop
+
+CRN_FOLD = 0x0C12  # the JAX package's fold_in(key, 0x0C12) (progressive.py:389)
+FinetuneNoise = Callable[[], NoiseSource]
+
+
+def finetune_noise(generator: torch.Generator, crn: bool = False) -> FinetuneNoise:
+    """The noise of each coding finetune, as ``encode_chunk`` asks for it: the
+    main generator, which runs on from finetune to finetune, or with ``crn``
+    (common random numbers) one fixed stream that restarts at every
+    finetune. That stream's generator is seeded from the main one's seed
+    and 0x0C12 without drawing from it, so turning CRN on moves no other
+    draw, and a resumed encode (whose generator state is restored, seed
+    included) gets the same stream."""
+    if not crn:
+        return lambda: generator
+    seed = np.random.SeedSequence([generator.initial_seed(), CRN_FOLD]).generate_state(
+        1, np.uint64)[0]
+    crn_gen = torch.Generator(device=generator.device).manual_seed(int(seed))
+    start = crn_gen.get_state()
+
+    def restart() -> torch.Generator:
+        crn_gen.set_state(start)
+        return crn_gen
+
+    return restart
+
+
+def encode_chunk(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
+                 cfg: ModalityConfig, noise: FinetuneNoise, min_epoch: float = 0,
+                 rel_tol: float = 0.0, *, n_steps: int, n_ft: int, lr: float = 2e-4,
+                 sample_size: int = 5, window: int = 0,
+                 lr_schedule: Optional[str] = None) -> Tuple[CodecState, np.ndarray]:
+    """``n_steps`` group steps of ``encoder.py:796-926``, each an
+    ``encode_step`` followed by a finetune with a fresh Adam whose noise
+    comes from ``noise()`` (``finetune_noise``: the main generator, or the
+    restarted CRN stream). The finetune runs ``n_ft`` epochs, or with
+    ``window > 0`` stops on a plateau of the loss (``optimize_adaptive``
+    with its epoch counted from 0 in each finetune, ``n_ft`` the ceiling).
+    ``lr_schedule='cosine'`` decays each finetune's lr from ``lr`` to 0
+    over ``n_ft`` steps, a fresh schedule per group. Returns (state, epochs
+    each finetune ran, shape (n_steps,))."""
+    if lr_schedule not in (None, "cosine"):
+        raise ValueError(f"lr_schedule must be None or 'cosine', not {lr_schedule!r}")
+    rate = cosine_lr(lr, 0.0, max(n_ft, 1)) if lr_schedule == "cosine" else lr
+    ran = np.zeros(n_steps, np.int32)
+    for k in range(n_steps):
+        state = encode_step(codec, state)
+        if n_ft == 0:
+            continue
+        if window > 0:
+            state, _, _, ran[k], _ = optimize_adaptive(
+                codec, state, X, Y, cfg, noise(), 0, n_ft, min_epoch, rel_tol, (math.inf, 0.0),
+                lr=rate, sample_size=sample_size, window=window)
+        else:
+            state = optimize(codec, state, X, Y, cfg, noise(), n_epochs=n_ft, lr=rate,
+                             sample_size=sample_size)
+            ran[k] = n_ft
+    return state, ran

@@ -1,33 +1,45 @@
-"""The progressive encode loop on the reference schedule, the fixed-budget,
-unfused path of ``recombiner_tpu/coding/progressive.py``: optimise the
-posteriors (phase 1, one ``optimize`` call), then code
-every row's highest-KL group one step at a time, each step followed by a
-fixed-budget finetune with a fresh Adam, and decode the indices.
+"""The progressive encode loop of ``recombiner_tpu/coding/progressive.py``
+(less its multi-device and precision options): optimise the posteriors
+(phase 1, a fixed number of epochs or up to a plateau), then code every
+row's highest-KL group one step at a time, each step followed by a
+finetune with a fresh Adam (a fixed budget or up to a plateau), snapshot
+along the way, and decode the indices.
 
 Everything runs in exact f32 (TF32 off in cuBLAS and cuDNN; ``optimize``,
 the A* scoring and ``decode`` each set it), which is what the JAX package
-computes on the CPU that the tests compare against. The
-noise comes from one ``torch.Generator`` threaded through every epoch;
-its numbers differ from ``jax.random``'s, so two packages' encodes of the
-same data differ sample by sample but write the same bitstream format.
+computes on the CPU that the tests compare against. The noise comes from
+one ``torch.Generator`` threaded through every epoch (or, for CRN
+finetunes, a stream derived from its seed); its numbers differ from
+``jax.random``'s, so two packages' encodes of the same data differ sample
+by sample but write the same bitstream and snapshot formats.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from recombiner_tpu_torch.coding.decoder import Codec, CodecState, decode, predict
-from recombiner_tpu_torch.coding.encoder import encode_step, group_kl, optimize
+from recombiner_tpu_torch.coding.encoder import (
+    AdamState,
+    cosine_lr,
+    encode_chunk,
+    finetune_noise,
+    group_kl,
+    optimize,
+    optimize_adaptive,
+)
 from recombiner_tpu_torch.config import ModalityConfig
 from recombiner_tpu_torch.device import exact_f32
+from recombiner_tpu_torch.io import encode_state
 from recombiner_tpu_torch.metrics import metric
 
-_LATER = "ROADMAP.md, port queue 1: the rest of encode"
+_LATER = "ROADMAP.md, port queue 1: patch / kodak_mini"
 
 
 @dataclasses.dataclass
@@ -73,18 +85,42 @@ def finetune_epochs(cfg: ModalityConfig, n_groups: int, level: str) -> int:
 def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
              generator: torch.Generator, *, n_optimize_epochs: int = 30000, lr: float = 2e-4,
              sample_size: int = 5, finetune_overrides: Optional[Dict[str, int]] = None,
-             verbose: bool = False, phase1_stop: Optional[tuple] = None,
-             finetune_stop: Optional[tuple] = None, fused_steps: Optional[int] = None,
-             state_path: Optional[str] = None, remat: bool = False) -> EncodeResult:
-    """Full encode on the reference schedule: ``n_optimize_epochs`` of phase
-    1, then each of level w's groups coded by an ``encode_step`` and refined
-    by a finetune of the reference's budget (or ``finetune_overrides['w']``)
-    with a fresh Adam. X (R, P, fourier_dim) and Y (R, P, out) move to the
-    codec's device."""
-    for name, value in (("phase1_stop", phase1_stop), ("finetune_stop", finetune_stop),
-                        ("fused_steps", fused_steps), ("state_path", state_path)):
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet ({_LATER})")
+             verbose: bool = False, state_path: Optional[str] = None, save_every: int = 10,
+             remat: bool = False, state_extra: Optional[Dict] = None,
+             phase1_epochs_done: int = 0, phase1_opt_leaves=None,
+             phase1_es: Optional[Sequence[float]] = None,
+             resume_generator_state: Optional[torch.Tensor] = None, chunk_epochs: int = 1000,
+             finetune_crn: Optional[bool] = None, phase1_stop: Optional[tuple] = None,
+             finetune_stop: Optional[tuple] = None, phase1_monitor: str = "mse",
+             phase1_lr: Optional[tuple] = None, phase1_sample_size: Optional[int] = None,
+             fused_steps: Optional[int] = None, finetune_lr: Optional[float] = None,
+             finetune_lr_schedule: Optional[str] = None) -> EncodeResult:
+    """Full encode; X (R, P, fourier_dim) and Y (R, P, out) move to the
+    codec's device. The knobs are the JAX package's (``progressive.py:
+    100-228``):
+
+    - phase 1: ``n_optimize_epochs`` epochs at ``lr``, or with
+      ``phase1_lr=(peak, floor)`` a cosine decay over them; S =
+      ``phase1_sample_size`` (default ``sample_size``); with
+      ``phase1_stop=(window, rel_tol, min_epochs)`` a ceiling, stopped on a
+      plateau of ``phase1_monitor`` ('mse' or 'loss'). It runs in chunks of
+      ``chunk_epochs`` (a multiple of 10, so chunking changes no number),
+      each followed by a snapshot when ``state_path`` is given;
+    - the finetunes: the reference budget or ``finetune_overrides['w']``,
+      a ceiling under ``finetune_stop``; ``finetune_crn`` (None: on for
+      patch configs only) gives every finetune one noise stream;
+      ``finetune_lr`` and ``finetune_lr_schedule`` ('cosine') need
+      ``fused_steps`` with a budget of at most ``chunk_epochs``, as in the
+      JAX package. ``fused_steps=K`` groups K steps per snapshot and
+      report; it changes no number. Unfused, a snapshot follows every
+      ``save_every`` groups.
+
+    Resume: ``phase1_epochs_done``, ``phase1_opt_leaves`` (optax's leaf
+    order), ``phase1_es`` and ``resume_generator_state`` continue phase 1
+    where a snapshot left it; a state whose groups are partly coded skips
+    phase 1 and the coded groups. ``state_extra`` is merged into every
+    snapshot's header. Snapshots go through
+    ``encode_state.save_encode_state``, looked up at each call."""
     if remat:
         raise NotImplementedError(f"remat is not ported yet ({_LATER})")
     if cfg.patch:
@@ -93,18 +129,69 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
     dev = codec.device
     X = torch.as_tensor(X, dtype=torch.float32, device=dev)
     Y = torch.as_tensor(Y, dtype=torch.float32, device=dev)
+    meta = codec.w
+    n_ft = (finetune_overrides or {}).get("w", finetune_epochs(cfg, meta.n_groups, "w"))
+    fused = bool(fused_steps) and 0 < n_ft <= chunk_epochs
+    if (finetune_lr or finetune_lr_schedule) and n_ft > 0 and not fused:
+        raise ValueError("finetune_lr/finetune_lr_schedule require the fused coding path "
+                         "(fused_steps with n_ft <= chunk_epochs)")
+    if resume_generator_state is not None:
+        generator.set_state(resume_generator_state)
+    scheduled = phase1_lr is not None
     timings: Dict[str, float] = {}
 
-    def run(state: CodecState, n_epochs: int) -> CodecState:
-        return optimize(codec, state, X, Y, cfg, generator, n_epochs=n_epochs, lr=lr,
-                        sample_size=sample_size)
+    def snapshot(state: CodecState, extra: Dict, opt_state=None) -> None:
+        if state_path is None:
+            return
+        encode_state.save_encode_state(
+            state_path, state,
+            extra={**extra, encode_state.GENERATOR_FIELD: encode_state.generator_record(generator),
+                   **(state_extra or {})},
+            opt_leaves=None if opt_state is None else opt_state.leaves(scheduled))
 
     t0 = time.perf_counter()
     if verbose:
         d0 = distortion_of(codec, state, X, Y, cfg)
         print(f"Initialization: average distortion {np.mean(d0):.4f}", flush=True)
-    state = run(state, n_optimize_epochs)
-    timings["phase1_epochs"] = n_optimize_epochs
+    resuming = bool(state.w.compressed.any())
+    if resuming and verbose:
+        print("Resuming encode from restored state; skipping phase-1 optimization", flush=True)
+
+    timings["phase1_epochs"] = 0
+    if n_optimize_epochs > phase1_epochs_done and not resuming:
+        opt_state = (None if phase1_opt_leaves is None
+                     else AdamState.from_leaves(phase1_opt_leaves, scheduled, dev))
+        if opt_state is not None and verbose:
+            print(f"Resuming phase-1 optimization at {phase1_epochs_done}/{n_optimize_epochs} "
+                  "epochs", flush=True)
+        rate = cosine_lr(*phase1_lr, n_optimize_epochs) if scheduled else lr
+        s1 = phase1_sample_size or sample_size
+        done, stopped = phase1_epochs_done, False
+        es = (math.inf, 0.0) if phase1_es is None else tuple(phase1_es)
+        while done < n_optimize_epochs and not stopped:
+            n = min(chunk_epochs, n_optimize_epochs - done)
+            extra = {}
+            if phase1_stop is not None:
+                window, rel_tol, min_epochs = phase1_stop
+                state, opt_state, es, done, stopped = optimize_adaptive(
+                    codec, state, X, Y, cfg, generator, done, done + n, min_epochs, rel_tol, es,
+                    lr=rate, sample_size=s1, window=window, opt_state=opt_state,
+                    monitor=phase1_monitor)
+                extra["phase1_es"] = list(es)
+            else:
+                state, opt_state = optimize(codec, state, X, Y, cfg, generator, n_epochs=n,
+                                            lr=rate, sample_size=s1, opt_state=opt_state,
+                                            return_opt_state=True)
+                done += n
+            # after a plateau stop the snapshot says phase 1 is over, as the
+            # coding loop's snapshots do, so that a resume does not run on
+            snapshot(state, {"phase1_epochs_done": n_optimize_epochs if stopped else done,
+                             **extra}, opt_state)
+            if verbose:
+                print(f"  optimize {done}/{n_optimize_epochs} epochs"
+                      f"{' (plateau stop)' if stopped else ''} "
+                      f"({time.perf_counter() - t0:.0f}s)", flush=True)
+        timings["phase1_epochs"] = done
     _sync(dev)
     timings["optimize_s"] = time.perf_counter() - t0
     if verbose:
@@ -113,22 +200,33 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
               f"{np.mean(d1):.4f} {kl_bits_summary(codec, state)}", flush=True)
 
     t1 = time.perf_counter()
-    meta = codec.w
-    n_ft = (finetune_overrides or {}).get("w", finetune_epochs(cfg, meta.n_groups, "w"))
+    if finetune_crn is None:
+        finetune_crn = bool(cfg.patch)
+    noise = finetune_noise(generator, finetune_crn)
+    ft_w, ft_tol, ft_min = finetune_stop if finetune_stop is not None else (0, 0.0, 0)
+    per_call = int(fused_steps) if fused else 1
     report_at = set(np.linspace(0, meta.n_groups - 1, 10).astype(int).tolist())
-    for step_i in range(meta.n_groups):
-        state = encode_step(codec, state, "w")
-        # beta annealing continues inside each finetune; coded groups keep
-        # beta = 0 because update_betas skips them
-        state = run(state, n_ft)
+    timings["finetune_epochs"] = timings["finetune_budget"] = 0
+    step_i = int(state.w.compressed.sum(1).max())  # groups already coded are skipped
+    while step_i < meta.n_groups:
+        k = min(per_call, meta.n_groups - step_i)
+        state, ran = encode_chunk(
+            codec, state, X, Y, cfg, noise, ft_min, ft_tol, n_steps=k, n_ft=n_ft,
+            lr=(finetune_lr or lr) if fused else lr, sample_size=sample_size,
+            window=int(ft_w), lr_schedule=finetune_lr_schedule if fused else None)
+        step_i += k
+        timings["finetune_budget"] += n_ft * k
+        timings["finetune_epochs"] += int(ran.sum())
         if verbose:
-            if step_i in report_at:
+            if report_at & set(range(step_i - k, step_i)):
                 d = distortion_of(codec, state, X, Y, cfg)
-                print(f"[w] {step_i + 1}/{meta.n_groups} groups coded; distortion "
+                print(f"[w] {step_i}/{meta.n_groups} groups coded; distortion "
                       f"{np.mean(d):.4f}", flush=True)
             else:
-                print(f"[w] {step_i + 1}/{meta.n_groups}", flush=True)
-    timings["finetune_epochs"] = n_ft * meta.n_groups
+                print(f"[w] {step_i}/{meta.n_groups}", flush=True)
+        if fused or step_i % save_every == 0:
+            snapshot(state, {"level": "w", "step": step_i - 1,
+                             "phase1_epochs_done": n_optimize_epochs})
     _sync(dev)
     timings["code_s"] = time.perf_counter() - t1
     indices = {"w": state.w.indices.cpu().numpy().astype(np.int32)}

@@ -36,3 +36,20 @@ def exact_f32() -> Iterator[None]:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def deterministic_convs() -> Iterator[None]:
+    """cuDNN restricted to deterministic algorithms for the duration.
+
+    With its own choice, cuDNN runs the encode's data gradient through the
+    phase conv stack on an algorithm whose sums are not ordered
+    (``dgrad_engine``; two epochs from one state differ), so a crashed and
+    resumed encode would not repeat the uninterrupted one. Restricted, the
+    epoch repeats bit for bit and is faster on the H100 (PERF.md section 5)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved

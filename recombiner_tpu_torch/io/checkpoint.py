@@ -1,7 +1,7 @@
-"""Versioned prior artifact, a copy of the load/save half of
-``recombiner_tpu/io/checkpoint.py``: the same ``.npz`` of named arrays plus a
-JSON header (FORMAT_VERSION 1), so an artifact written by either package
-loads in the other."""
+"""Versioned prior artifact, a copy of ``recombiner_tpu/io/checkpoint.py``:
+the same ``.npz`` of named arrays plus a JSON header (FORMAT_VERSION 1), so
+an artifact written by either package loads in the other, and the same
+fingerprint of it."""
 
 from __future__ import annotations
 
@@ -75,6 +75,41 @@ def _unpack_level(prefix: str, z) -> LevelArtifact:
         avg_log_scale=z[f"{prefix}/avg_log_scale"],
         grouping=grouping,
     )
+
+
+def prior_fingerprint(art: PriorArtifact, *, _legacy: bool = False) -> str:
+    """Short content hash of a prior artifact, equal byte for byte to the JAX
+    package's (``recombiner_tpu/io/checkpoint.py:84-120``). Encode snapshots
+    carry it, so that a resume against another prior (other codebooks and
+    priors than the snapshot's frozen samples were drawn from) is refused.
+    ``_legacy`` is the earlier formula, without avg_log_scale and the
+    up-net weights, which older snapshots carry."""
+    import hashlib
+
+    hsh = hashlib.sha256()
+    hsh.update(
+        f"{art.config.name}|{art.codebook_seed}|{art.codebook_kind}|{art.kl_beta:.9e}".encode()
+    )
+    for name, lv in sorted(art.levels.items()):
+        hsh.update(name.encode())
+        hsh.update(np.ascontiguousarray(lv.p_loc, np.float32).tobytes())
+        hsh.update(np.ascontiguousarray(lv.p_scale, np.float32).tobytes())
+        hsh.update(np.ascontiguousarray(lv.grouping.param2group, np.int32).tobytes())
+        if not _legacy:
+            hsh.update(np.ascontiguousarray(lv.avg_log_scale, np.float32).tobytes())
+    for a in art.A:
+        hsh.update(np.ascontiguousarray(a, np.float32).tobytes())
+    if not _legacy:
+        for name in sorted(art.up):
+            hsh.update(name.encode())
+            hsh.update(np.ascontiguousarray(art.up[name]["w"], np.float32).tobytes())
+            hsh.update(np.ascontiguousarray(art.up[name]["b"], np.float32).tobytes())
+    return hsh.hexdigest()[:16]
+
+
+def accepted_fingerprints(art: PriorArtifact) -> tuple:
+    """(current, legacy) fingerprints of ``art``: a resume accepts either."""
+    return (prior_fingerprint(art), prior_fingerprint(art, _legacy=True))
 
 
 def save_prior_artifact(path: str, art: PriorArtifact) -> None:

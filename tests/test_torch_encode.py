@@ -49,6 +49,16 @@ DECODE_TOL = dict(atol=3e-5, rtol=1e-5)
 R, S = 3, 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """TINY tensors gain nothing from torch's intra-op threads, and with one
+    thread pool per test worker they oversubscribe the machine's cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _close(got, want, what=""):
     got, want = np.asarray(got), np.asarray(want)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max(),
@@ -156,20 +166,23 @@ def _replayed_noise(key, cfg, R, S):
 
 
 def test_one_elbo_epoch_matches_jax(setup):
-    """Loss and gradients of one epoch against jax.value_and_grad of
-    ``_elbo_loss_fn``, with JAX's noise replayed (``_close``)."""
+    """Loss, its scaled-mse term and the gradients of one epoch against
+    jax.value_and_grad of ``_elbo_loss_fn(with_aux=True)``, with JAX's noise
+    replayed (``_close``)."""
     jart, art, jcodec, jstate, codec, X, Y = setup
     key = jax.random.key(3)
     loss_fn = jenc._elbo_loss_fn(jcodec, jnp.asarray(X), jnp.asarray(Y), jart.config, S, None,
-                                 False)
-    jloss, jgrads = jax.value_and_grad(loss_fn)({"w": jstate.w.q}, jstate, key)
+                                 False, with_aux=True)
+    (jloss, jmse), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
+        {"w": jstate.w.q}, jstate, key)
 
     st = convert.codec_state_from(jstate, "cpu")
     params = [st.w.q.loc.requires_grad_(), st.w.q.log_scale.requires_grad_()]
-    loss = encoder.elbo_loss(codec, st, torch.from_numpy(X), torch.from_numpy(Y), art.config, S,
-                             noise=_replayed_noise(key, jart.config, R, S))
+    loss, mse = encoder.elbo_loss(codec, st, torch.from_numpy(X), torch.from_numpy(Y),
+                                  art.config, S, noise=_replayed_noise(key, jart.config, R, S))
     g_loc, g_log_scale = torch.autograd.grad(loss, params)
     _close(loss.item(), jloss, "loss")
+    _close(mse.item(), jmse, "mse")
     _close(g_loc.numpy(), jgrads["w"].loc, "d loc")
     _close(g_log_scale.numpy(), jgrads["w"].log_scale, "d log_scale")
 
@@ -276,11 +289,8 @@ def test_tiny_compress_decodes_in_both_packages(setup, tmp_path):
 def test_compress_raises_on_what_later_slices_port(setup):
     _, art, _, _, codec, X, Y = setup
     state = decoder.init_codec(art, R, device="cpu")[1]
-    gen = torch.Generator()
-    for kw in (dict(phase1_stop=(25, 1e-3, 50)), dict(finetune_stop=(40, 1e-3, 80)),
-               dict(fused_steps=8), dict(state_path="s.npz"), dict(remat=True)):
-        with pytest.raises(NotImplementedError):
-            progressive.compress(codec, state, X, Y, art.config, gen, **kw)
+    with pytest.raises(NotImplementedError, match="remat"):
+        progressive.compress(codec, state, X, Y, art.config, torch.Generator(), remat=True)
 
 
 def test_small_copies_match_jax():
@@ -324,9 +334,9 @@ def test_cli_compress_on_png_dir(tmp_path):
     with pytest.raises(NotImplementedError, match="--remat"):
         compress_cli.main(["--test_dir", str(images), "--test_idx", "0", "--prior_path", prior,
                            "--save_dir", str(out), "--remat"])
-    with pytest.raises(NotImplementedError, match="schedule adaptive"):
+    with pytest.raises(NotImplementedError, match="n_devices 2"):
         compress_cli.main(["--test_dir", str(images), "--test_idx", "0", "--prior_path", prior,
-                           "--save_dir", str(out), "--schedule", "adaptive"])
+                           "--save_dir", str(out), "--n_devices", "2"])
 
 
 def test_predict_sample_form_matches_jax(setup):
@@ -369,6 +379,32 @@ def test_optimize_runs_in_exact_f32(setup, monkeypatch):
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
 
 
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_epochs_run_on_deterministic_cudnn_algorithms(setup, monkeypatch, adaptive):
+    """optimize and optimize_adaptive restrict cuDNN to deterministic
+    algorithms for every epoch, whatever the caller had set, and restore it
+    after: cuDNN's own choice for the conv stack's data gradient sums in no
+    fixed order on the card, and a resumed encode must repeat."""
+    _, art, _, jstate, codec, X, Y = setup
+    seen = []
+    loss = encoder.elbo_loss
+
+    def spy(*a, **k):
+        seen.append(torch.backends.cudnn.deterministic)
+        return loss(*a, **k)
+
+    monkeypatch.setattr(encoder, "elbo_loss", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    args = (codec, convert.codec_state_from(jstate, "cpu"), torch.from_numpy(X),
+            torch.from_numpy(Y), art.config, torch.Generator())
+    if adaptive:
+        encoder.optimize_adaptive(*args, 0, 2, 0, 0.0, (np.inf, 0.0), sample_size=1, window=1)
+    else:
+        encoder.optimize(*args, n_epochs=2, sample_size=1)
+    assert seen == [True] * 2
+    assert torch.backends.cudnn.deterministic is False
+
+
 _CLI_BASE = ["--test_dir", "d", "--test_idx", "0", "--prior_path", "p.npz", "--save_dir", "o"]
 
 
@@ -392,16 +428,7 @@ def test_cli_takes_the_jax_clis_reference_invocations(extra):
 
 @pytest.mark.parametrize("extra,queue", [
     (["--remat"], "remat"),
-    (["--finetune_crn"], "finetune common random numbers"),
-    (["--state_path", "s.npz"], "io/encode_state resume"),
     (["--n_devices", "2"], "scale-out"),
-    (["--p1_stop", "2000", "2e-3", "8000"], "optimize_adaptive"),
-    (["--ft_stop", "40", "1e-3", "80"], "optimize_adaptive"),
-    (["--p1_lr", "6e-4", "2e-5"], "the adaptive/quality presets"),
-    (["--p1_samples", "3"], "the adaptive/quality presets"),
-    (["--ft_lr", "4e-4"], "the fused coding path"),
-    (["--ft_lr_schedule", "cosine"], "the fused coding path"),
-    (["--schedule", "quality"], "the adaptive/quality presets"),
     (["--precision", "default"], "precision modes"),
 ])
 def test_cli_raises_on_each_value_the_port_does_not_run(extra, queue):
@@ -412,3 +439,56 @@ def test_cli_raises_on_each_value_the_port_does_not_run(extra, queue):
     with pytest.raises(NotImplementedError, match=extra[0]) as e:
         compress_cli.main(_CLI_BASE + extra)
     assert queue in str(e.value)
+
+
+@pytest.fixture(scope="module")
+def png_dir(tmp_path_factory):
+    """A TINY prior saved by the port and a directory of 16 x 16 PNGs."""
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("cli")
+    _, art = _artifacts()
+    checkpoint.save_prior_artifact(str(root / "prior.npz"), art)
+    (root / "images").mkdir()
+    for i, img in enumerate(_images(1, seed=7)):
+        Image.fromarray(np.round(img * 255).astype(np.uint8)).save(root / "images" / f"{i}.png")
+    return root
+
+
+@pytest.mark.parametrize("extra", [
+    ["--finetune_crn"],
+    ["--state_path", "{root}/state.npz"],
+    ["--p1_stop", "2", "1e-3", "2"],
+    ["--ft_stop", "1", "1e-3", "1"],
+    ["--p1_lr", "6e-4", "2e-5"],
+    ["--p1_samples", "1"],
+    ["--ft_lr", "4e-4"],
+    ["--ft_lr_schedule", "cosine"],
+    ["--schedule", "quality"],
+])
+def test_cli_runs_each_value_this_slice_ports(extra, png_dir, tmp_path, setup):
+    """Each flag value that the adaptive/quality/resume slice ports parses
+    alike in both packages, names nothing unported, and runs (a few epochs
+    on TINY); ``--ft_lr`` and ``--ft_lr_schedule`` without the fused path
+    raise the JAX package's ValueError, as its ``compress`` does."""
+    extra = [a.format(root=tmp_path) for a in extra]
+    base = ["--test_dir", str(png_dir / "images"), "--test_idx", "0", "--prior_path",
+            str(png_dir / "prior.npz"), "--save_dir", str(tmp_path / "out"), "--device", "cpu",
+            "--n_epochs", "4", "--finetune_epochs", "2", "--sample_size", "2"]
+    assert vars(jax_compress_cli.parse_args(base + extra)) == vars(
+        compress_cli.parse_args(base + extra))
+    assert compress_cli.unported(compress_cli.parse_args(base + extra)) == []
+    if extra[0] in ("--ft_lr", "--ft_lr_schedule"):
+        with pytest.raises(ValueError, match="require the fused coding path"):
+            compress_cli.main(base + extra)
+        jart, _, jcodec, jstate = setup[:4]
+        with pytest.raises(ValueError, match="require the fused coding path"):
+            jprog.compress(jcodec, jstate, None, None, jart.config, jax.random.key(0),
+                           n_optimize_epochs=0, finetune_overrides={"w": 2},
+                           finetune_lr=4e-4 if extra[0] == "--ft_lr" else None,
+                           finetune_lr_schedule="cosine" if extra[1] == "cosine" else None)
+        return
+    res = compress_cli.main(base + extra)
+    assert res.state.w.compressed.all()
+    assert sorted(os.listdir(tmp_path / "out")) == [
+        "Distortion_test_id_0.csv", "GroupIndex_test_id_0.csv", "bitstream_test_id_0.rctb"]

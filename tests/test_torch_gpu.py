@@ -202,3 +202,86 @@ def test_encode_step_on_card_matches_cpu(cuda):
     assert torch.equal(card.indices.cpu(), cpu.indices)
     assert torch.equal(card.compressed.cpu(), cpu.compressed)
     torch.testing.assert_close(card.frozen_val.cpu(), cpu.frozen_val, rtol=1e-6, atol=1e-7)
+
+
+def _tiny_artifact(seed=3):
+    """A TINY prior from ``seed`` with the port's own grouping (no JAX here)."""
+    from recombiner_tpu_torch.io.checkpoint import LevelArtifact, PriorArtifact
+    from recombiner_tpu_torch.priors.grouping import compute_grouping
+
+    cfg = TINY
+    rng = np.random.default_rng(seed)
+    D = cfg.n_coded_params
+    level = LevelArtifact(p_loc=rng.normal(0, 0.02, D).astype(np.float32),
+                          p_scale=rng.uniform(0.005, 0.05, D).astype(np.float32),
+                          avg_log_scale=rng.normal(-4, 0.1, D).astype(np.float32),
+                          grouping=compute_grouping(rng.exponential(0.5, D), cfg.bits_per_group))
+    A = [rng.uniform(-0.1, 0.1, (d, d)).astype(np.float32) for d in cfg.layer_param_counts]
+    up = {}
+    for i, (cin, cout, k) in enumerate([(128, 64, 5), (64, 64, 3), (64, 16, 3)]):
+        b = 1 / np.sqrt(cin * k * k)
+        up[f"conv{i}"] = {"w": rng.uniform(-b, b, (k, k, cin, cout)).astype(np.float32),
+                          "b": rng.uniform(-b, b, cout).astype(np.float32)}
+    return PriorArtifact(config=cfg, kl_beta=1e-3, w=level, h=None, hh=None, A=A, up=up)
+
+
+def _tiny_data(R):
+    from recombiner_tpu_torch.coords import grid_fourier_features
+
+    cfg = TINY
+    X = torch.from_numpy(grid_fourier_features(cfg.pixel_sizes, cfg.fourier_dim))
+    rng = np.random.default_rng(4)
+    Y = torch.from_numpy(rng.uniform(0.1, 0.9, (R, cfg.n_pixels, 3)).astype(np.float32))
+    return X.expand(R, *X.shape), Y
+
+
+def test_adaptive_encode_on_card_decodes_to_its_reconstruction(cuda):
+    """A TINY encode on the adaptive preset's knobs (depth cut) through both
+    kernels on the card: its indices decode on the card to exactly
+    compress's reconstruction, and on the CPU within TOL."""
+    from recombiner_tpu_torch.coding.progressive import compress
+
+    art = _tiny_artifact()
+    R = 4
+    X, Y = _tiny_data(R)
+    codec, state = init_codec(art, R)
+    before = dict(fused_inr.launches)
+    res = compress(codec, state, X, Y, TINY, torch.Generator(device=cuda).manual_seed(0),
+                   n_optimize_epochs=40, sample_size=5, phase1_lr=(6e-4, 2e-5),
+                   phase1_sample_size=3, phase1_stop=(5, 2e-3, 10), finetune_stop=(2, 1e-3, 2),
+                   fused_steps=8, finetune_overrides={"w": 6})
+    assert fused_inr.launches["siren_bwd"] - before["siren_bwd"] == (
+        res.timings["phase1_epochs"] + res.timings["finetune_epochs"])
+    assert res.state.w.compressed.all()
+    y = decode(codec, res.indices, X, TINY)
+    assert torch.equal(y.cpu(), torch.from_numpy(res.reconstruction))
+    y_cpu = decode(init_codec(art, R, device="cpu")[0], res.indices, X, TINY)
+    torch.testing.assert_close(y.cpu(), y_cpu, **TOL)
+
+
+def test_snapshot_written_on_card_loads_on_cpu(cuda, tmp_path):
+    """An encode snapshot of a card state loads on the CPU with equal arrays;
+    its generator state is the card generator's, offered only to a card
+    generator."""
+    from recombiner_tpu_torch.coding.encoder import optimize
+    from recombiner_tpu_torch.io import encode_state
+
+    art = _tiny_artifact()
+    X, Y = _tiny_data(2)
+    codec, state = init_codec(art, 2)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    state, opt = optimize(codec, state, X.to(cuda), Y.to(cuda), TINY, gen, n_epochs=3,
+                          sample_size=2, return_opt_state=True)
+    state = encode_step(codec, state)
+    path = str(tmp_path / "state.npz")
+    encode_state.save_encode_state(
+        path, state, extra={encode_state.GENERATOR_FIELD: encode_state.generator_record(gen)},
+        opt_leaves=opt.leaves(scheduled=False))
+    cpu, header, leaves = encode_state.load_encode_state_full(path, device="cpu")
+    for f in ("frozen_mask", "frozen_val", "kl_beta", "compressed", "indices"):
+        assert torch.equal(getattr(cpu.w, f), getattr(state.w, f).cpu()), f
+    assert torch.equal(cpu.w.q.loc, state.w.q.loc.cpu())
+    assert torch.equal(cpu.w.q.log_scale, state.w.q.log_scale.cpu())
+    assert encode_state.generator_state(header, "cpu") is None
+    assert torch.equal(encode_state.generator_state(header, "cuda"), gen.get_state())
+    assert np.array_equal(leaves[1], opt.mu[0].cpu().numpy()) and int(leaves[0]) == 3

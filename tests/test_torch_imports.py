@@ -12,10 +12,11 @@ import recombiner_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "flax", "optax", "tqdm", "recombiner_tpu")
-# the encode slice's modules, named so that the check above cannot pass
+# the encode slices' modules, named so that the check above cannot pass
 # without them
 ENCODE_MODULES = ("coding.encoder", "coding.progressive", "coding.gumbel", "cli.compress",
-                  "data.pipeline", "data.image", "data.load_data", "metrics")
+                  "data.pipeline", "data.image", "data.load_data", "metrics", "io.atomic",
+                  "io.encode_state", "io.checkpoint", "models.upsample")
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|tqdm|recombiner_tpu)\b", re.M)
 
 

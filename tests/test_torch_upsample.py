@@ -1,6 +1,7 @@
-"""The port's conv stack (cuDNN / CPU conv2d, NCHW inside, channel-last at
-the boundary) against both JAX versions: ``apply_upsample`` and the phase
-rewrite ``apply_upsample_phased`` that the JAX package's decode runs.
+"""The port's two conv stacks (cuDNN / CPU conv2d, NCHW inside, channel-last
+at the boundary), the plain ``apply_upsample`` and the phase rewrite
+``apply_upsample_phased``, each against both JAX versions:
+``apply_upsample`` and the phase rewrite that the JAX package's decode runs.
 
 Weights come from numpy through ``torch_params_from_artifact`` (HWIO ->
 OIHW). Tolerance atol 1e-5, rtol 1e-5: each output sums up to 3,200 f32
@@ -19,11 +20,16 @@ from recombiner_tpu.config import CIFAR, TINY
 from recombiner_tpu.models.mappings import lpe_to_pe as jax_lpe_to_pe
 from recombiner_tpu.models.upsample import apply_upsample as jax_apply_upsample
 from recombiner_tpu.models.upsample import init_upsample_params
-from recombiner_tpu.ops.phase_upsample import apply_upsample_phased
+from recombiner_tpu.ops.phase_upsample import apply_upsample_phased as jax_apply_upsample_phased
 from recombiner_tpu_torch.config import TINY_PATCH, get_config
 from recombiner_tpu_torch.io.convert import torch_params_from_artifact
 from recombiner_tpu_torch.models.mappings import lpe_to_pe
-from recombiner_tpu_torch.models.upsample import apply_upsample
+from recombiner_tpu.ops.phase_upsample import phase_kernel_matrix as jax_phase_kernel_matrix
+from recombiner_tpu_torch.models.upsample import (
+    apply_upsample,
+    apply_upsample_phased,
+    phase_kernel_matrix,
+)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -36,18 +42,19 @@ def _params(cfg, seed):
     return p, up
 
 
+@pytest.mark.parametrize("stack", [apply_upsample, apply_upsample_phased])
 @pytest.mark.parametrize("name", ["tiny", "cifar"])
-def test_conv_stack_matches_both_jax_versions(name):
+def test_conv_stack_matches_both_jax_versions(name, stack):
     jcfg = {"tiny": TINY, "cifar": CIFAR}[name]
     cfg = get_config(name)
     jp, up = _params(jcfg, seed=1)
     rng = np.random.default_rng(2)
     x = rng.standard_normal((3, *cfg.lpe_spatial, cfg.latent_dim)).astype(np.float32)
     args = (cfg.data_dim, cfg.layerwise_scale_factors, cfg.paddings)
-    got = apply_upsample(up, torch.from_numpy(x), *args).numpy()
+    got = stack(up, torch.from_numpy(x), *args).numpy()
     assert got.shape == (3, *cfg.pixel_sizes, cfg.upsample_out)
     hi = jax.lax.Precision.HIGHEST
-    for fn in (jax_apply_upsample, apply_upsample_phased):
+    for fn in (jax_apply_upsample, jax_apply_upsample_phased):
         want = np.asarray(fn(jp, jnp.asarray(x), *args, precision=hi))
         np.testing.assert_allclose(got, want, **TOL)
 
@@ -63,6 +70,14 @@ def test_lpe_to_pe_matches_jax_cifar():
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("k,f,p", [(5, 4, 2), (3, 2, 1), (7, 2, 3), (1, 3, 0)])
+def test_phase_kernel_matrix_is_the_jax_packages(k, f, p):
+    M, ext, pads = phase_kernel_matrix(k, (f, f), p)
+    jM, jext, jpads = jax_phase_kernel_matrix(k, (f, f), p)
+    np.testing.assert_array_equal(M, jM)
+    assert (ext, pads) == (jext, jpads)
+
+
 def test_hwio_to_oihw():
     w = np.arange(5 * 5 * 4 * 6, dtype=np.float32).reshape(5, 5, 4, 6)
     ns = types.SimpleNamespace(A=[np.eye(3)], up={"conv0": {"w": w, "b": np.zeros(6)}})
@@ -73,7 +88,8 @@ def test_hwio_to_oihw():
 
 
 def test_not_ported_geometries_raise():
-    with pytest.raises(NotImplementedError):
-        apply_upsample({}, torch.zeros(1, 4, 32), 1, (4, 2, 2), (2, 1, 1))
+    for stack in (apply_upsample, apply_upsample_phased):
+        with pytest.raises(NotImplementedError):
+            stack({}, torch.zeros(1, 4, 32), 1, (4, 2, 2), (2, 1, 1))
     with pytest.raises(NotImplementedError):
         lpe_to_pe({}, torch.zeros(4, 1, 1, 1, 128), TINY_PATCH)
