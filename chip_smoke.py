@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: CIFAR decode, and encode
 on the reference, adaptive and quality schedules with a crash and a
-resume, at R = 500.
+resume, at R = 500; then Kodak (the patch path: levels w, h, hh, the
+cross-patch permutations and the stitched conv canvas) at its full
+geometry: decode, encode, remat, and a crash and a resume.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -61,11 +63,30 @@ caught and passed over but the crashes phase 12 simulates):
    that raises after the first phase-1 snapshot, resumed through the CLI's
    ``resume_from``, crashed again after the first coding-loop snapshot,
    and resumed again; the final indices and posteriors must equal the
-   uninterrupted run's bit for bit.
+   uninterrupted run's bit for bit;
+13. Kodak kernels: a KODAK prior of the artifact's shapes from --seed (no
+   trained one is in the repo), siren_fwd at B = 96, P = 4,096 (one
+   image's patch rows) and siren_bwd at B = 480 (S = 5), each held against
+   its plain version and an f64 evaluation, timed, with its bound;
+14. Kodak decode: random indices for all three levels (96 / 6 / 1 rows),
+   decoded on the card and on the CPU (all 96 rows, so the stitch is
+   compared whole); decode wall, device time and peak memory;
+15. Kodak encode: ``compress`` on the reference schedule on one smooth
+   512 x 768 image, cut in depth (KODAK_* below), every group of hh, h and
+   w coded, the launch counts read around it, the bitstream decoded back
+   equal; epoch_s at S = 5, code_step_s per level, peak memory, an epoch
+   under the profiler, and epoch_s under each conv stack;
+16. Kodak remat: KODAK_REMAT_EPOCHS epochs from one state and generator
+   state with remat off, on, on, off: off twice and on against off must be
+   bitwise equal; epoch_s and peak memory of each;
+17. Kodak resume: the encode crashed after its first snapshot at level h,
+   resumed through ``resume_from``; indices and posteriors must equal the
+   uninterrupted encode's bit for bit.
 
-Cuts (depth only; every phase runs CIFAR's full widths, R = 500 rows, all
-125 groups coded): ENCODE_* for the reference schedule; ADAPTIVE and
-QUALITY for the presets (``recombiner_tpu_torch/cli/compress.py``).
+Cuts (depth only; every CIFAR phase runs CIFAR's full widths, R = 500
+rows, all 125 groups coded): ENCODE_* for the reference schedule; ADAPTIVE
+and QUALITY for the presets (``recombiner_tpu_torch/cli/compress.py``);
+KODAK_* for Kodak (full widths and geometry, every group coded).
 
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -90,9 +111,11 @@ import torch
 
 from recombiner_tpu_torch.cli.compress import resume_from
 from recombiner_tpu_torch.coding import encoder, progressive
+from recombiner_tpu_torch.coding import decoder
 from recombiner_tpu_torch.coding.decoder import decode, init_codec
-from recombiner_tpu_torch.config import CIFAR
+from recombiner_tpu_torch.config import CIFAR, KODAK
 from recombiner_tpu_torch.coords import grid_fourier_features
+from recombiner_tpu_torch.data.pipeline import points_from_datum
 from recombiner_tpu_torch.device import exact_f32
 from recombiner_tpu_torch.io import encode_state
 from recombiner_tpu_torch.io.bitstream import read_bitstream, write_bitstream
@@ -100,6 +123,7 @@ from recombiner_tpu_torch.io.checkpoint import LevelArtifact, PriorArtifact, pri
 from recombiner_tpu_torch.metrics import metric
 from recombiner_tpu_torch.models import mappings
 from recombiner_tpu_torch.models.gaussian import Gaussian
+from recombiner_tpu_torch.models.inr import inr_forward
 from recombiner_tpu_torch.models.upsample import apply_upsample, apply_upsample_phased
 from recombiner_tpu_torch.ops import _build
 from recombiner_tpu_torch.ops import fused_inr
@@ -125,6 +149,13 @@ ADAPTIVE = dict(n_optimize_epochs=400, phase1_lr=(6e-4, 2e-5), phase1_sample_siz
 QUALITY = dict(n_optimize_epochs=200, phase1_lr=(6e-4, 2e-5), phase1_stop=(50, 2e-3, 100),
                finetune_stop=(2, 1e-3, 2), fused_steps=8, finetune_lr=4e-4,
                finetune_lr_schedule="cosine", finetune_overrides={"w": 4}, chunk_epochs=50)
+# Kodak decode on the card against an f64 evaluation: at most this many
+# times the CPU's f32 decode's gap to it. At Kodak's geometry with the
+# smoke's random prior the f32 decode itself is about 1.3e-4 from the f64
+# one (three levels' latents summed make the SIREN at w0 = 30 amplify f32
+# rounding more than CIFAR's one), so a fixed atol of CIFAR's 1e-4 between
+# card and CPU measures f32, not the card (PERF.md, PR 8).
+DECODE_F64_RATIO = 2.0
 # the phase-decomposed conv stack against the plain one on the card: the
 # same exact-f32 function with each output summed in another order
 STACK_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -161,6 +192,25 @@ def bounds(flops: float, nbytes: float):
             "3xTF32" if t_3xtf32 <= t_fp32 else "FP32 FMA", 1e3 * max(t_fp32, t_bytes))
 
 
+def fwd_work(x: torch.Tensor, theta: torch.Tensor, dims):
+    """(operations, bytes) that siren_fwd needs: two per multiply-add of
+    each layer at every pixel; x and theta read once, y written once."""
+    B, P = x.shape[:2]
+    flops = 2 * B * P * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+    return flops, 4 * (x.numel() + theta.numel() + B * P * dims[-1])
+
+
+def bwd_work(x: torch.Tensor, theta: torch.Tensor, dy: torch.Tensor, dims):
+    """(operations, bytes) that siren_bwd needs: the forward recompute (it
+    stops before the last layer, whose dz is dy), then dW and da for every
+    layer, at every pixel; x, theta and dy read once, dx and dtheta written
+    once."""
+    B, P = x.shape[:2]
+    macs = [dims[i] * dims[i + 1] for i in range(len(dims) - 1)]
+    flops = 2 * B * P * (sum(macs[:-1]) + 2 * sum(macs))
+    return flops, 4 * (2 * x.numel() + 2 * theta.numel() + dy.numel())
+
+
 def launch_plan(name: str, dims) -> dict:
     """Warps per block, dynamic shared memory per block and resident blocks
     per SM that the kernel's launcher picks for these widths."""
@@ -192,19 +242,39 @@ def card_line() -> str:
     return out[0]
 
 
-def make_cifar_artifact(seed: int) -> PriorArtifact:
-    """A CIFAR prior of the trained artifact's shapes and magnitudes, with
-    random values from ``seed``."""
-    cfg = CIFAR
-    rng = np.random.default_rng(seed)
-    D = cfg.n_coded_params
+def random_level(rng: np.random.Generator, D: int, bits_per_group: int) -> LevelArtifact:
+    """A level of D coded parameters with the trained CIFAR artifact's
+    magnitudes and random values: per-parameter KLs of 0.5 bits on average,
+    grouped into groups of at most ``bits_per_group`` bits."""
     kl_bits = rng.exponential(0.5, D)
-    level = LevelArtifact(
+    return LevelArtifact(
         p_loc=rng.normal(0.0, 0.01, D).astype(np.float32),
         p_scale=np.exp(rng.uniform(np.log(0.0025), np.log(0.05), D)).astype(np.float32),
         avg_log_scale=(-4.0 + 0.1 * rng.standard_normal(D)).astype(np.float32),
-        grouping=compute_grouping(kl_bits, max_bits=cfg.bits_per_group),
+        grouping=compute_grouping(kl_bits, max_bits=bits_per_group),
     )
+
+
+def make_cifar_artifact(seed: int) -> PriorArtifact:
+    """A CIFAR prior of the trained artifact's shapes and magnitudes, with
+    random values from ``seed``."""
+    return make_artifact(CIFAR, seed)
+
+
+def make_kodak_artifact(seed: int) -> PriorArtifact:
+    """A KODAK prior (levels w, h, hh of 5,315, 3,267 and 3,267 coded
+    parameters) with random values from ``seed``, as ``make_cifar_artifact``
+    draws them: no trained Kodak prior is in the repo."""
+    return make_artifact(KODAK, seed)
+
+
+def make_artifact(cfg, seed: int) -> PriorArtifact:
+    rng = np.random.default_rng(seed)
+    level = random_level(rng, cfg.n_coded_params, cfg.bits_per_group)
+    upper = {}
+    if cfg.patch:
+        upper = {name: random_level(rng, cfg.n_inr_params, cfg.bits_per_group)
+                 for name in ("h", "hh")}
     A = [rng.uniform(-0.1, 0.1, (d, d)).astype(np.float32) for d in cfg.layer_param_counts]
     chans = [(cfg.latent_dim, cfg.upsample_hidden), (cfg.upsample_hidden, cfg.upsample_hidden),
              (cfg.upsample_hidden, cfg.upsample_out)]
@@ -215,8 +285,9 @@ def make_cifar_artifact(seed: int) -> PriorArtifact:
             "w": rng.uniform(-bound, bound, (k, k, cin, cout)).astype(np.float32),
             "b": rng.uniform(-bound, bound, cout).astype(np.float32),
         }
-    return PriorArtifact(config=cfg, kl_beta=1e-4, w=level, h=None, hh=None, A=A, up=up,
-                         codebook_seed=seed, codebook_kind="threefry")
+    return PriorArtifact(config=cfg, kl_beta=1e-4, w=level, h=upper.get("h"),
+                         hh=upper.get("hh"), A=A, up=up, codebook_seed=seed,
+                         codebook_kind="threefry")
 
 
 def kernel_inputs(art: PriorArtifact, B: int, P: int, gen: torch.Generator):
@@ -264,11 +335,11 @@ def f64_gaps(kernel: torch.Tensor, plain: torch.Tensor, ref64: torch.Tensor):
     return tuple(((t.double() - ref64).abs().max() / top).item() for t in (kernel, plain))
 
 
-def smooth_images(n: int, seed: int) -> np.ndarray:
-    """n CIFAR-sized images (32 x 32 x 3, values in [0.1, 0.9]) from ``seed``:
-    a few random plane waves per channel."""
+def smooth_images(n: int, seed: int, hw=(32, 32)) -> np.ndarray:
+    """n images (hw, 3) with values in [0.1, 0.9] from ``seed``: a few random
+    plane waves per channel. CIFAR-sized by default."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.meshgrid(np.linspace(0, 1, 32), np.linspace(0, 1, 32), indexing="ij")
+    yy, xx = np.meshgrid(np.linspace(0, 1, hw[0]), np.linspace(0, 1, hw[1]), indexing="ij")
     f = rng.uniform(0.5, 3.0, (n, 3, 2, 2))
     ph = rng.uniform(0, 2 * np.pi, (n, 3, 2))
     waves = sum(np.sin(2 * np.pi * (f[..., k, 0, None, None] * xx + f[..., k, 1, None, None] * yy)
@@ -348,6 +419,35 @@ def stack(fn):
         mappings.STACK = saved
 
 
+def as_f64(obj):
+    """``obj`` (a codec, or anything of tensors in dataclasses, dicts and
+    tuples) with every floating tensor in float64."""
+    if torch.is_tensor(obj):
+        return obj.double() if obj.is_floating_point() else obj
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: as_f64(getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj)})
+    if isinstance(obj, dict):
+        return {k: as_f64(v) for k, v in obj.items()}
+    if isinstance(obj, tuple):
+        return tuple(as_f64(v) for v in obj)
+    return obj
+
+
+def decode_f64(art, idx, X, cfg) -> torch.Tensor:
+    """An f64 evaluation of ``decode`` on the CPU (the plain SIREN chain, the
+    plain conv stack) from the same f32 inputs: the exact answer that the
+    f32 decodes are held to."""
+    codec = as_f64(init_codec(art, next(iter(idx.values())).shape[0], device="cpu")[0])
+    saved = decoder.inr_forward_fused
+    decoder.inr_forward_fused = inr_forward
+    try:
+        with stack(apply_upsample):
+            return decode(codec, idx, X, cfg)
+    finally:
+        decoder.inr_forward_fused = saved
+
+
 def zero_launches() -> None:
     torch.cuda.synchronize()
     for k in fused_inr.launches:
@@ -400,14 +500,16 @@ class Crash(RuntimeError):
 
 
 @contextlib.contextmanager
-def crash_after_first_snapshot(of: str):
+def crash_after_first_snapshot(of: str, level=None):
     """``encode_state.save_encode_state`` writes its snapshot, then raises
-    Crash at the first snapshot of ``of`` ('phase1' or 'coding')."""
+    Crash at the first snapshot of ``of`` ('phase1' or 'coding'; with
+    ``level``, the coding loop's first at that level)."""
     save = encode_state.save_encode_state
 
     def crashing(path, state, **kw):
         save(path, state, **kw)
-        if ("level" in kw["extra"]) == (of == "coding"):
+        extra = kw["extra"]
+        if ("level" in extra) == (of == "coding") and level in (None, extra.get("level")):
             raise Crash(of)
 
     encode_state.save_encode_state = crashing
@@ -418,7 +520,268 @@ def crash_after_first_snapshot(of: str):
 
 
 def same_posteriors(a, b) -> bool:
-    return torch.equal(a.w.q.loc, b.w.q.loc) and torch.equal(a.w.q.log_scale, b.w.q.log_scale)
+    """Every level's posteriors bitwise equal."""
+    return all(torch.equal(getattr(a.level(n).q, f), getattr(b.level(n).q, f))
+               for n in ("w", "h", "hh") if a.level(n) is not None
+               for f in ("loc", "log_scale"))
+
+
+# The Kodak encode is cut in depth only: phase 1 30,000 -> 30 epochs, and
+# every finetune (w: max(30000 // n_groups, 50) epochs, h and hh:
+# max(15000 // n_groups, 20)) -> 1, so that every group of every level is
+# coded inside the time limit.
+KODAK_PHASE1_EPOCHS = 30
+KODAK_FINETUNES = {"w": 1, "h": 1, "hh": 1}
+KODAK_REMAT_EPOCHS = 5
+KODAK_SAVE_EVERY = 10
+
+
+def kodak_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
+    """The phases at KODAK's full geometry (levels w, h, hh of 96, 6 and 1
+    rows, P = 4,096, S = 5) with a random prior of KODAK's shapes from
+    ``seed`` and one smooth 512 x 768 image: both kernels at P = 4,096,
+    decode, encode, remat, and a crash at level h resumed. Appends the
+    kernels' disagreements to ``errs`` and ``bwd_errs``; returns the
+    numbers the kernels line and the summary print."""
+    cfg = KODAK
+    dims, P = cfg.net_dims, cfg.n_pixels
+    # one image, as cli/compress encodes it: 8 x 12 patches of 64 x 64
+    R, S = cfg.patches_per_datapoint, SAMPLE_SIZE
+    hw = tuple(n * p for n, p in zip(cfg.patch_nums, cfg.pixel_sizes))
+    out = {"rows": R}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    t0 = time.perf_counter()
+    art = make_kodak_artifact(seed)
+    print(f"Kodak prior from seed {seed}: "
+          + ", ".join(f"{n} D={getattr(art, n).grouping.n_params} "
+                      f"{getattr(art, n).grouping.n_groups} groups" for n in ("w", "h", "hh"))
+          + f" ({time.perf_counter() - t0:.2f} s)")
+
+    with phase("Kodak kernels"), exact_f32():
+        x, theta = kernel_inputs(art, R, P, gen)
+        ref = fused_inr.siren_forward_reference(x, theta, dims, cfg.w0)
+        got = fused_inr.siren_forward(x, theta, dims, cfg.w0, samples_per_block=1)
+        torch.cuda.synchronize()
+        errs.append(max_err(got, ref))
+        gap = f64_gaps(got, ref, fused_inr.siren_forward_reference(x.double(), theta.double(),
+                                                                   dims, cfg.w0))
+        fwd = {"shape": [R, P], "max_abs_err": errs[-1],
+               "ms": cuda_ms(lambda: fused_inr.siren_forward(x, theta, dims, cfg.w0, 1), 50),
+               "plain_ms": cuda_ms(
+                   lambda: fused_inr.siren_forward_reference(x, theta, dims, cfg.w0), 20)}
+        flops, nbytes = fwd_work(x, theta, dims)
+        fwd["bound_ms"], fwd["bound_by"], route, _ = bounds(flops, nbytes)
+        print(f"siren_fwd B={R} P={P}: max abs diff {errs[-1]:.3e} (atol {ATOL}, rtol {RTOL}); "
+              f"vs an f64 evaluation {gap[0]:.3e} kernel, {gap[1]:.3e} plain version; "
+              f"{fwd['ms']:.4f} ms, plain version {fwd['plain_ms']:.4f} ms, bound "
+              f"{fwd['bound_ms']:.4f} ms by {fwd['bound_by']} ({flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB; operations term {route}) [{card}]")
+        del x, theta, ref, got
+        B = R * S
+        xb, thetab = kernel_inputs(art, B, P, gen)
+        dyb = torch.randn(B, P, cfg.output_dim, generator=gen, device="cuda")
+        got = fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0)
+        again = fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError("two siren_bwd launches at P=4096 differ")
+        refs = fused_inr.siren_backward_reference(xb, thetab, dyb, dims, cfg.w0)
+        e = (max_err_of_max(got[0], refs[0], "dx"), max_err_of_max(got[1], refs[1], "dtheta"))
+        bwd_errs += e
+        ref64 = fused_inr.siren_backward_reference(xb.double(), thetab.double(), dyb.double(),
+                                                   dims, cfg.w0)
+        gaps = [f64_gaps(k, r, r64) for k, r, r64 in zip(got, refs, ref64)]
+        del ref64, refs, again
+        bwd = {"shape": [B, P], "max_abs_err": max(e),
+               "ms": cuda_ms(lambda: fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0), 10),
+               "plain_ms": cuda_ms(lambda: fused_inr.siren_backward_reference(
+                   xb, thetab, dyb, dims, cfg.w0), 3, 1)}
+        flops, nbytes = bwd_work(xb, thetab, dyb, dims)
+        bwd["bound_ms"], bwd["bound_by"], route, _ = bounds(flops, nbytes)
+        print(f"siren_bwd B={B} P={P}: max abs diff dx {e[0]:.3e}, dtheta {e[1]:.3e} (tolerance "
+              f"{BWD_OF_MAX} of the largest entry); two launches bitwise equal; vs an f64 "
+              f"evaluation dx {gaps[0][0]:.3e} kernel, {gaps[0][1]:.3e} plain, dtheta "
+              f"{gaps[1][0]:.3e} kernel, {gaps[1][1]:.3e} plain; {bwd['ms']:.4f} ms, plain "
+              f"version {bwd['plain_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms by "
+              f"{bwd['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; operations "
+              f"term {route}) [{card}]")
+        del xb, thetab, dyb, got
+        # kodak_mini's one image at S = 5 is 20 one-sample blocks on 132 SMs
+        xs, ts = kernel_inputs(art, 20, 1024, gen)
+        dys = torch.randn(20, 1024, cfg.output_dim, generator=gen, device="cuda")
+        small_ms = cuda_ms(lambda: fused_inr.siren_backward(xs, ts, dys, dims, cfg.w0), 20)
+        print(f"siren_bwd at B=20 P=1024 (kodak_mini's one image at S=5): {small_ms:.4f} ms, "
+              f"{1e6 * small_ms / (20 * 1024):.3f} ns per sample-pixel against "
+              f"{1e6 * bwd['ms'] / (B * P):.3f} at B={B} P={P} [{card}]")
+        bwd["small_ms"] = small_ms
+        out["siren_fwd"], out["siren_bwd"] = fwd, bwd
+
+    with phase("Kodak decode"):
+        t0 = time.perf_counter()
+        decoder.patch_permutations(R, cfg.n_coded_params)
+        perm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        codec, state0 = init_codec(art, R)
+        print(f"init_codec R={R}: {time.perf_counter() - t0:.2f} s on the host (level w's "
+              f"cross-patch permutations {R} x {cfg.n_coded_params}: {perm_s:.3f} s; three "
+              "2^16-sample codebooks)")
+        rows = {n: state0.level(n).q.loc.shape[0] for n in codec.level_names}
+        rng = np.random.default_rng(seed)
+        idx = {n: rng.integers(0, 2**cfg.bits_per_group, (rows[n], codec.meta(n).n_groups))
+               for n in codec.level_names}
+        img = smooth_images(1, seed, hw)[0]
+        X_np, Y_np = points_from_datum(img, cfg)
+        X, Y = torch.from_numpy(X_np).cuda(), torch.from_numpy(Y_np).cuda()
+        zero_launches()
+        y = decode(codec, idx, X, cfg)
+        torch.cuda.synchronize()
+        launched_dec = dict(fused_inr.launches)
+        print(f"kernel launches in Kodak decode: {launched_dec}; rows per level {rows}")
+        if launched_dec["siren_fwd"] < 1:
+            raise AssertionError("Kodak decode did not go through the siren_fwd kernel")
+        if y.shape != (R, P, cfg.output_dim) or not torch.isfinite(y).all():
+            raise AssertionError(f"Kodak decode output: shape {tuple(y.shape)}")
+        y_cpu = decode(init_codec(art, R, device="cpu")[0], idx, X_np, cfg)
+        y64 = decode_f64(art, idx, X_np, cfg)
+        card_gap = (y.cpu().double() - y64).abs().max().item()
+        cpu_gap = (y_cpu.double() - y64).abs().max().item()
+        print(f"Kodak decode, all {R} rows (the whole stitched image): card vs CPU max abs diff "
+              f"{(y.cpu() - y_cpu).abs().max().item():.3e}; vs an f64 evaluation {card_gap:.3e} "
+              f"card, {cpu_gap:.3e} CPU (tolerance: the card at most {DECODE_F64_RATIO} times "
+              f"the CPU's gap); output range [{y64.min().item():.4f}, {y64.max().item():.4f}]")
+        if card_gap > DECODE_F64_RATIO * cpu_gap:
+            raise AssertionError("Kodak decode on the card is further from the f64 evaluation "
+                                 "than the CPU's f32 decode allows")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dec_s = wall_s(lambda: decode(codec, idx, X, cfg), 5)
+        dec_peak = torch.cuda.max_memory_allocated()
+        busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: decode(codec, idx, X, cfg), 5)
+        out["decode"] = {"wall_ms": 1e3 * dec_s, "device_ms": busy_us / 5e3,
+                         "idle": 1 - busy_us / wall_us, "peak_mib": dec_peak / 2**20}
+        print(f"Kodak decode R={R}: wall {1e3 * dec_s:.3f} ms (mean of 5 after a warm call), "
+              f"device time {busy_us / 5e3:.3f} ms per decode under the profiler in "
+              f"{wall_us / 5e3:.3f} ms of its wall, idle share {1 - busy_us / wall_us:.4f}; "
+              f"peak device memory {dec_peak / 2**20:.1f} MiB [{card}]")
+        for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {us / 5e3:8.4f} ms/decode {100 * us / busy_us:5.1f}%  {name[:100]}")
+
+    def compress(state, generator_seed=seed, **kw):
+        return progressive.compress(codec, state, X, Y, cfg,
+                                    torch.Generator(device="cuda").manual_seed(generator_seed),
+                                    n_optimize_epochs=KODAK_PHASE1_EPOCHS, sample_size=S,
+                                    finetune_overrides=KODAK_FINETUNES, **kw)
+
+    with phase("Kodak encode"):
+        zero_launches()
+        t0 = time.perf_counter()
+        res = compress(state0)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        t = res.timings
+        groups = {n: codec.meta(n).n_groups for n in codec.level_names}
+        launched_enc = read_launches(t["phase1_epochs"] + t["finetune_epochs"], "Kodak encode")
+        if not all(res.state.level(n).compressed.all() for n in codec.level_names):
+            raise AssertionError("the Kodak encode left groups uncoded")
+        print(f"Kodak encode (reference schedule, phase 1 {t['phase1_epochs']} epochs, 1-epoch "
+              f"finetunes; groups coded hh {groups['hh']}, h {groups['h']}, w {groups['w']}, "
+              f"all): wall {enc_s:.3f} s (optimize {t['optimize_s']:.3f} s, code "
+              f"{t['code_s']:.3f} s); PSNR {np.mean(res.distortion):.4f} dB @ "
+              f"{res.bitrate:.4f} bpp [{card}]")
+        check_bitstream(codec, res, X, cfg, art, "Kodak encode")
+
+        def epochs(n, remat=False):
+            return encoder.optimize(codec, state0, X, Y, cfg, gen, n_epochs=n, sample_size=S,
+                                    remat=remat)
+
+        epochs(2)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        epochs(10)
+        torch.cuda.synchronize()
+        epoch_s = (time.perf_counter() - t0) / 10
+        epoch_peak = torch.cuda.max_memory_allocated()
+        step_s = {}
+        for n in ("hh", "h", "w"):
+            step_s[n] = wall_s(lambda: encoder.encode_step(codec, state0, n), 5)
+        out["encode"] = {"epoch_s": epoch_s, "peak_mib": epoch_peak / 2**20,
+                         "code_step_s": step_s, "wall_s": enc_s}
+        print(f"Kodak epoch_s {epoch_s:.6f} (R={R}, S={S}, mean of 10 warm epochs), peak device "
+              f"memory {epoch_peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB allocated before "
+              f"the epochs); code_step_s hh {step_s['hh']:.6f}, h {step_s['h']:.6f}, w "
+              f"{step_s['w']:.6f} (one encode_step, mean of 5) [{card}]")
+        busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: epochs(1), 5)
+        out["encode"]["idle"] = 1 - busy_us / wall_us
+        print(f"Kodak epoch under the profiler: {busy_us / 5e3:.3f} ms device time per epoch in "
+              f"{wall_us / 5e3:.3f} ms wall, idle share {1 - busy_us / wall_us:.4f}")
+        for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
+            print(f"  {us / 5e3:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name[:100]}")
+        stacks = {"plain": apply_upsample, "phase": apply_upsample_phased}
+        stack_s = {name: [] for name in stacks}
+        for name in ("plain", "phase", "phase", "plain"):
+            with stack(stacks[name]):
+                stack_s[name].append(wall_s(lambda: epochs(5), 1) / 5)
+        print("Kodak epoch_s by conv stack (order plain, phase, phase, plain): "
+              + ", ".join(f"{n} {v[0]:.6f} / {v[1]:.6f}" for n, v in stack_s.items())
+              + f"; lpe_to_pe uses {mappings.STACK.__name__} [{card}]")
+
+    with phase("Kodak remat"):
+        def run(remat):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            st = encoder.optimize(codec, state0, X, Y, cfg, g, n_epochs=KODAK_REMAT_EPOCHS,
+                                  sample_size=S, remat=remat)
+            torch.cuda.synchronize()
+            return (st, (time.perf_counter() - t0) / KODAK_REMAT_EPOCHS,
+                    torch.cuda.max_memory_allocated())
+
+        epochs(1, remat=True)
+        runs = {False: [], True: []}
+        for remat in (False, True, True, False):
+            runs[remat].append(run(remat))
+        repeat = same_posteriors(runs[False][0][0], runs[False][1][0])
+        equal = same_posteriors(runs[True][0][0], runs[False][0][0])
+        out["remat"] = {k: {"epoch_s": [r[1] for r in v], "peak_mib": v[0][2] / 2**20}
+                        for k, v in (("on", runs[True]), ("off", runs[False]))}
+        print(f"Kodak {KODAK_REMAT_EPOCHS} epochs from one state and generator state (order off, "
+              f"on, on, off): remat on epoch_s {runs[True][0][1]:.6f} / {runs[True][1][1]:.6f}, "
+              f"peak {runs[True][0][2] / 2**20:.1f} MiB; off epoch_s {runs[False][0][1]:.6f} / "
+              f"{runs[False][1][1]:.6f}, peak {runs[False][0][2] / 2**20:.1f} MiB; off twice "
+              f"bitwise equal {repeat}; on vs off bitwise equal {equal} [{card}]")
+        if not (repeat and equal):
+            raise AssertionError("the Kodak epochs do not repeat bit for bit, or remat changes "
+                                 "the posteriors")
+
+    with phase("Kodak resume"):
+        with tempfile.TemporaryDirectory() as tmp:
+            extra = {"state_path": os.path.join(tmp, "enc_state.npz"),
+                     "save_every": KODAK_SAVE_EVERY,
+                     "state_extra": {"prior_fingerprint": prior_fingerprint(art)}}
+            with crash_after_first_snapshot("coding", level="h"):
+                try:
+                    compress(state0, **extra)
+                    raise AssertionError("no snapshot was taken at level h")
+                except Crash:
+                    pass
+            resume, state = resume_from(extra["state_path"], art, "cuda")
+            coded = {n: int(state.level(n).compressed.sum(1).max()) for n in codec.level_names}
+            print(f"crashed after the first snapshot at level h; resuming with groups coded "
+                  f"{coded}")
+            res_r = compress(state, **extra, **resume)
+        indices_equal = all(np.array_equal(res_r.indices[n], res.indices[n])
+                            for n in codec.level_names)
+        posteriors_equal = same_posteriors(res_r.state, res.state)
+        print(f"Kodak encode crashed at level h and resumed vs uninterrupted: indices bitwise "
+              f"equal {indices_equal}, posteriors bitwise equal {posteriors_equal}")
+        check_bitstream(codec, res_r, X, cfg, art, "resumed Kodak encode")
+        if not (indices_equal and posteriors_equal):
+            raise AssertionError("the resumed Kodak encode differs from the uninterrupted one")
+    out["launches"] = {"kodak_decode": launched_dec, "kodak_encode": launched_enc}
+    return out
 
 
 def determinism(codec, state0, X, Y, cfg, seed: int) -> dict:
@@ -620,8 +983,7 @@ def main(argv=None) -> int:
         ms = {spb: cuda_ms(lambda: fused_inr.siren_forward(x, theta, dims, cfg.w0, spb), 50)
               for spb in (1, 8)}
         plain_ms = cuda_ms(lambda: fused_inr.siren_forward_reference(x, theta, dims, cfg.w0), 20)
-        flops = 2 * N_ROWS * P * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
-        nbytes = 4 * (x.numel() + theta.numel() + N_ROWS * P * dims[-1])
+        flops, nbytes = fwd_work(x, theta, dims)
         bound_ms, bound_by, ops_route, fma_bound_ms = bounds(flops, nbytes)
         for spb in (1, 8):
             print(f"siren_fwd samples_per_block={spb}: {ms[spb]:.4f} ms "
@@ -648,11 +1010,7 @@ def main(argv=None) -> int:
         bwd_ms = cuda_ms(lambda: fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0), 10)
         bwd_plain_ms = cuda_ms(
             lambda: fused_inr.siren_backward_reference(xb, thetab, dyb, dims, cfg.w0), 3, 1)
-        # multiply-adds per pixel: the forward recompute (it stops before the
-        # last layer, whose dz is dy), then dW and da for every layer
-        macs = [dims[i] * dims[i + 1] for i in range(len(dims) - 1)]
-        bwd_flops = 2 * B_enc * P * (sum(macs[:-1]) + 2 * sum(macs))
-        bwd_bytes = 4 * (2 * xb.numel() + 2 * thetab.numel() + dyb.numel())
+        bwd_flops, bwd_bytes = bwd_work(xb, thetab, dyb, dims)
         bwd_bound_ms, bwd_bound_by, bwd_ops_route, bwd_fma_bound_ms = bounds(bwd_flops,
                                                                               bwd_bytes)
         print(f"siren_bwd B={B_enc} P={P}: {bwd_ms:.4f} ms ({bwd_flops / bwd_ms / 1e9:.2f} "
@@ -822,6 +1180,8 @@ def main(argv=None) -> int:
         if not (indices_equal and posteriors_equal):
             raise AssertionError("the resumed encode differs from the uninterrupted one")
 
+    kodak = kodak_phases(args.seed, card, errs, bwd_errs)
+
     kernels = [{
         "name": "siren_fwd",
         "route": "cuda",
@@ -832,7 +1192,8 @@ def main(argv=None) -> int:
         "launches": launched_enc["siren_fwd"],
         "launches_by_path": {"decode": launched["siren_fwd"], "encode": launched_enc["siren_fwd"],
                              "adaptive_encode": launched_ad["siren_fwd"],
-                             "quality_encode": launched_q["siren_fwd"]},
+                             "quality_encode": launched_q["siren_fwd"],
+                             **{p: n["siren_fwd"] for p, n in kodak["launches"].items()}},
         "max_abs_err": max(errs),
         "ms": ms[1],
         "ms_8_samples_per_block": ms[8],
@@ -842,6 +1203,7 @@ def main(argv=None) -> int:
         "bound_route": ops_route if bound_by == "operations" else "HBM",
         "fp32_fma_bound_ms": fma_bound_ms,
         "library_ms": None,
+        "kodak": kodak["siren_fwd"],
     }, {
         "name": "siren_bwd",
         "route": "cuda",
@@ -851,7 +1213,8 @@ def main(argv=None) -> int:
         "launches": launched_enc["siren_bwd"],
         "launches_by_path": {"decode": launched["siren_bwd"], "encode": launched_enc["siren_bwd"],
                              "adaptive_encode": launched_ad["siren_bwd"],
-                             "quality_encode": launched_q["siren_bwd"]},
+                             "quality_encode": launched_q["siren_bwd"],
+                             **{p: n["siren_bwd"] for p, n in kodak["launches"].items()}},
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
@@ -860,6 +1223,7 @@ def main(argv=None) -> int:
         "bound_route": bwd_ops_route if bwd_bound_by == "operations" else "HBM",
         "fp32_fma_bound_ms": bwd_fma_bound_ms,
         "library_ms": None,
+        "kodak": kodak["siren_bwd"],
     }]
     print("kernels: siren_fwd (CUDA, replaces recombiner_tpu/ops/fused_inr.py::_fwd_kernel and "
           "recombiner_tpu/ops/pallas_inr.py::_kernel), held against siren_forward_reference "
@@ -870,6 +1234,15 @@ def main(argv=None) -> int:
           f"{epoch_peak / 2**20:.1f} MiB, epoch idle share {epoch_idle:.4f}, epoch_s at S=3 "
           f"{epoch_s3:.6f}, adaptive encode {adaptive_s:.3f} s, quality encode "
           f"{quality_s:.3f} s [{card}]")
+    ke = kodak["encode"]
+    print(f"Kodak (R={kodak['rows']}, S={SAMPLE_SIZE}): epoch_s {ke['epoch_s']:.6f}, epoch peak "
+          f"memory {ke['peak_mib']:.1f} MiB, epoch idle share {ke['idle']:.4f}, code_step_s "
+          + ", ".join(f"{n} {v:.6f}" for n, v in ke["code_step_s"].items())
+          + f", encode {ke['wall_s']:.3f} s; decode {kodak['decode']['wall_ms']:.3f} ms wall, "
+          f"{kodak['decode']['device_ms']:.3f} ms device, peak {kodak['decode']['peak_mib']:.1f} "
+          f"MiB; remat epoch_s on {kodak['remat']['on']['epoch_s']}, off "
+          f"{kodak['remat']['off']['epoch_s']}, peak on {kodak['remat']['on']['peak_mib']:.1f} / "
+          f"off {kodak['remat']['off']['peak_mib']:.1f} MiB [{card}]")
     print(f"total: {time.perf_counter() - t_all:.2f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

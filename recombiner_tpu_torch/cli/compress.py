@@ -2,7 +2,8 @@
 ``recombiner_tpu/cli/compress.py``: encode one test batch on the CUDA card
 (or, with ``--device cpu``, on the CPU) on the reference, adaptive or
 quality schedule, resumable from ``--state_path``, and write the same
-``Distortion_*.csv``, ``GroupIndex_*.csv`` and ``.rctb`` bitstream.
+``Distortion_*.csv``, ``GroupIndex_*.csv`` (and ``H_``/``HH_`` ones for a
+patch config such as kodak) and ``.rctb`` bitstream.
 
     python -m recombiner_tpu_torch.cli.compress --test_dir DIR --test_idx 0 \\
         --prior_path out/PRIOR_....npz --save_dir out/ [--schedule adaptive] \\
@@ -29,12 +30,12 @@ from recombiner_tpu_torch.io.checkpoint import (
     load_prior_artifact,
     prior_fingerprint,
 )
+from recombiner_tpu_torch.utils.memory import resolve_remat
 
 # The queue that ports each flag's values that the port does not run yet
 # (ROADMAP.md, port queue 1 unless named).
 _QUEUE = {
     "n_devices": "scale-out (queue 7)",
-    "remat": "remat (queue 1 item 4)",
     "precision": "precision modes (the port encodes in exact f32)",
 }
 
@@ -71,8 +72,9 @@ def parse_args(argv=None):
                    help="flow-control batching in the JAX package; results identical, "
                         "so the port accepts and ignores it")
     p.add_argument("--remat", action=argparse.BooleanOptionalAction, default=None,
-                   help="rematerialisation; the port stores activations (--no-remat or "
-                        "the default)")
+                   help="recompute the ELBO's forward in its backward (changes no number). "
+                        "Default: on when the stored-activation estimate exceeds 8 GB, as in "
+                        "the JAX package; --no-remat forces it off")
     p.add_argument("--finetune_crn", action=argparse.BooleanOptionalAction, default=None,
                    help="one noise stream for every coding finetune; default on for "
                         "patch configs only")
@@ -144,7 +146,6 @@ def unported(args) -> list:
     run something other than what it runs; empty when it runs them all."""
     bad = {
         "n_devices": args.n_devices is not None and args.n_devices > 1,
-        "remat": bool(args.remat),
         "precision": args.precision not in (None, "highest"),
     }
     return [f"--{name} {getattr(args, name)} ({_QUEUE[name]})"
@@ -200,7 +201,9 @@ def main(argv=None):
     if args.state_path:
         resume, restored = resume_from(args.state_path, art, dev)
         state = state if restored is None else restored
-    print(f"Model initialized. Expected bitrate {cfg.bitrate_of_groups(codec.w.n_groups):.3f}",
+    remat = resolve_remat(args.remat, cfg, X.shape[0], args.sample_size)
+    n_groups = [codec.meta(n).n_groups for n in codec.level_names]
+    print(f"Model initialized. Expected bitrate {cfg.bitrate_of_groups(*n_groups):.3f}",
           flush=True)
     (n_epochs, p1_lr, p1_samples, p1_stop, ft_stop, fused_steps,
      ft_lr, ft_lr_schedule) = resolve_schedule(args)
@@ -216,10 +219,11 @@ def main(argv=None):
         finetune_lr=ft_lr,
         finetune_lr_schedule=ft_lr_schedule,
         finetune_overrides=(None if args.finetune_epochs is None
-                            else {"w": args.finetune_epochs}),
+                            else {k: args.finetune_epochs for k in codec.level_names}),
         verbose=True,
         state_path=args.state_path,
         save_every=args.save_every,
+        remat=remat,
         state_extra={"prior_fingerprint": prior_fingerprint(art)},
         finetune_crn=args.finetune_crn,
         **resume,
@@ -229,8 +233,11 @@ def main(argv=None):
     np.savetxt(os.path.join(args.save_dir, f"Distortion_test_id_{args.test_idx}.csv"),
                np.atleast_2d(result.distortion), delimiter=",")
     if int(bool(args.save_bitstream)):
-        np.savetxt(os.path.join(args.save_dir, f"GroupIndex_test_id_{args.test_idx}.csv"),
-                   result.indices["w"], delimiter=",")
+        prefix = {"w": "", "h": "H_", "hh": "HH_"}
+        for name, idx in result.indices.items():
+            np.savetxt(os.path.join(args.save_dir,
+                                    f"{prefix[name]}GroupIndex_test_id_{args.test_idx}.csv"),
+                       idx, delimiter=",")
         n = write_bitstream(
             os.path.join(args.save_dir, f"bitstream_test_id_{args.test_idx}.rctb"),
             result.indices,

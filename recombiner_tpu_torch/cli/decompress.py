@@ -1,5 +1,7 @@
 """Decompression CLI of the port: decode a ``.rctb`` bitstream against its
-prior artifact on the CUDA card (or, with ``--device cpu``, on the CPU).
+prior artifact on the CUDA card (or, with ``--device cpu``, on the CPU),
+and save the reconstruction as ``(rows, P, out)``: one row per datapoint,
+or per patch of a patch config, as the JAX package's CLI saves it.
 
     python -m recombiner_tpu_torch.cli.decompress --bitstream out/bitstream_test_id_0.rctb \\
         --prior_path out/PRIOR_....npz --save_dir out/

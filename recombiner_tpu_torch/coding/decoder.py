@@ -6,16 +6,23 @@
 Decode is deterministic given the indices: every cell is frozen at its
 decoded codebook sample with zero scale, so the result matches the JAX
 package up to f32 rounding with no shared random numbers. Posteriors are
-kept in PHYSICAL (param-order) layout as in the JAX package; the coded
-(group-order) view exists only as index maps. Non-patch configs only:
-the patch hierarchy (levels h and hh, cross-patch row permutations) is
-queued in ROADMAP.md.
+kept in PHYSICAL (param-order, physical-row) layout as in the JAX package;
+the coded (group-order, budget-mixed-row) view exists only as index maps:
+
+    coded cell (r', c) <-> physical cell (r, d):
+    d = param2group[c], r = perm_g2p[r', c]; c = group2param[d],
+    r' = beta_row[r, d]
+
+Patch configs code three levels: w per patch row, h per block of
+``level2_patch_nums`` patches, hh per datapoint; the rows of w and h are
+mixed across patches per coded column (``perm_g2p``), so that every coded
+row draws on all patches' budgets.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,8 +37,7 @@ from recombiner_tpu_torch.models.gaussian import Gaussian, scale_transform
 from recombiner_tpu_torch.models.mappings import lpe_to_pe, sample_hierarchical_latents
 from recombiner_tpu_torch.ops.fused_inr import inr_forward_fused
 
-_PATCH_TODO = ("patch configs are not ported yet (ROADMAP.md, port queue: "
-               "patch / kodak_mini)")
+LEVELS = ("w", "h", "hh")
 
 
 @dataclasses.dataclass
@@ -48,6 +54,8 @@ class LevelMeta:
     param2group: torch.Tensor  # (D,) coded position -> param index
     group2param: torch.Tensor  # (D,) param index -> coded position
     group_of_col: torch.Tensor  # (D,) param index -> group id
+    perm_g2p: Optional[torch.Tensor]  # (R, D) coded row -> physical row, per coded column
+    beta_row: Optional[torch.Tensor]  # (R, D) physical cell -> its coded row, per param column
     eps: torch.Tensor  # (n_samples, Gmax) codebook
     gumbel: torch.Tensor  # (n_samples,) A* perturbations, bitstream format
     D: int
@@ -83,21 +91,54 @@ class Codec:
     def device(self) -> torch.device:
         return self.A[0].device
 
+    @property
+    def level_names(self) -> Tuple[str, ...]:
+        return ("w",) if self.h is None else LEVELS
+
+    def meta(self, name: str) -> LevelMeta:
+        return getattr(self, name)
+
 
 @dataclasses.dataclass
 class CodecState:
     w: LevelState
-    h: Optional[LevelState]
-    hh: Optional[LevelState]
+    h: Optional[LevelState] = None
+    hh: Optional[LevelState] = None
+
+    def level(self, name: str) -> LevelState:
+        return getattr(self, name)
+
+    def replace_level(self, name: str, ls: LevelState) -> "CodecState":
+        return dataclasses.replace(self, **{name: ls})
 
 
 def _round_up(x: int, m: int = 128) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _make_level_meta(lv: LevelArtifact, level_name: str, codebook_seed: int,
-                     gumbel_seed: int, bits_per_group: int, codebook_kind: str,
-                     device: torch.device) -> LevelMeta:
+def patch_permutations(n_rows: int, n_cols: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(perm, inv), each (n_rows, n_cols) int32: column c is the numpy stream
+    ``RandomState(c).choice(n_rows, n_rows, False)``, inv its inverse. Part
+    of the bitstream format: the JAX package's ``native.patch_permutations``
+    and its RandomState fallback (``encoder.py:156-173``) give the same
+    arrays. One RandomState reseeded per column draws the same stream as a
+    new one per column and spares building a generator per column (the
+    time is in PERF.md: ``chip_smoke.py``, phase "Kodak decode")."""
+    perm = np.empty((n_rows, n_cols), np.int32)
+    inv = np.empty((n_rows, n_cols), np.int32)
+    rs = np.random.RandomState()
+    rows = np.arange(n_rows, dtype=np.int32)
+    for c in range(n_cols):
+        rs.seed(c)
+        order = rs.choice(n_rows, n_rows, False)
+        perm[:, c] = order
+        inv[order, c] = rows
+    return perm, inv
+
+
+def _make_level_meta(lv: LevelArtifact, level_name: str, n_rows: int, permute_rows: bool,
+                     codebook_seed: int, gumbel_seed: int, bits_per_group: int,
+                     codebook_kind: str, device: torch.device) -> LevelMeta:
     g = lv.grouping
     D = g.n_params
     Gmax = _round_up(g.max_group_size)
@@ -107,6 +148,12 @@ def _make_level_meta(lv: LevelArtifact, level_name: str, codebook_seed: int,
     p_scale = np.ones(Dpad, np.float32)
     p_loc[:D] = lv.p_loc[p2g]
     p_scale[:D] = lv.p_scale[p2g]
+    perm = beta_row = None
+    if permute_rows:
+        # the cross-patch budget-mixing permutation, one per coded column
+        # (encoder.py:147-173), regenerated alike at decode
+        perm, inv = patch_permutations(n_rows, D)
+        beta_row = inv[:, g.group2param]
     n_samples = 2**bits_per_group
     eps = make_codebook(codebook_seed, level_name, n_samples, Gmax, codebook_kind)
 
@@ -123,6 +170,8 @@ def _make_level_meta(lv: LevelArtifact, level_name: str, codebook_seed: int,
         param2group=i64(p2g),
         group2param=i64(g.group2param),
         group_of_col=i64(g.group_idx[g.group2param]),
+        perm_g2p=None if perm is None else i64(perm),
+        beta_row=None if beta_row is None else i64(beta_row),
         eps=f32(eps),
         gumbel=f32(gumbel_chain(n_samples, gumbel_seed)),
         D=D,
@@ -152,21 +201,28 @@ def _init_level_state(lv: LevelArtifact, meta: LevelMeta, n_rows: int,
 def init_codec(artifact: PriorArtifact, n_rows: int, codebook_kind: Optional[str] = None,
                initial_beta: Optional[float] = None,
                device: DeviceLike = None) -> Tuple[Codec, CodecState]:
-    """Build the coding context and a fresh state for ``n_rows`` rows on
-    ``device`` (None: the CUDA card). The codebook kind defaults to the
-    artifact's: it is bitstream format, not a tuning knob."""
+    """Build the coding context and a fresh state for ``n_rows`` rows
+    (datapoints, or patches of a patch config) on ``device`` (None: the CUDA
+    card). A patch config gets levels h and hh beside w, each with its own
+    codebook; the rows of w and h are mixed across patches per coded
+    column. The codebook kind defaults to the artifact's: it is bitstream
+    format, not a tuning knob."""
     cfg = artifact.config
-    if cfg.patch:
-        raise NotImplementedError(_PATCH_TODO)
     dev = resolve_device(device)
     beta = artifact.kl_beta if initial_beta is None else initial_beta
     kind = artifact.codebook_kind if codebook_kind is None else codebook_kind
     seed = artifact.codebook_seed
-    w_meta = _make_level_meta(artifact.w, "w", seed, seed, cfg.bits_per_group, kind, dev)
+    rows = {"w": n_rows}
+    if cfg.patch:
+        rows.update(h=cfg.rows_level2(n_rows), hh=cfg.rows_level3(n_rows))
+    metas, states = {}, {}
+    for name, r in rows.items():
+        lv = getattr(artifact, name)
+        metas[name] = _make_level_meta(lv, name, r, cfg.patch and name != "hh", seed, seed,
+                                       cfg.bits_per_group, kind, dev)
+        states[name] = _init_level_state(lv, metas[name], r, beta)
     A, up = torch_params_from_artifact(artifact, dev)
-    codec = Codec(w=w_meta, h=None, hh=None, A=tuple(A), up=up)
-    state = CodecState(w=_init_level_state(artifact.w, w_meta, n_rows, beta), h=None, hh=None)
-    return codec, state
+    return Codec(A=tuple(A), up=up, **{n: metas.get(n) for n in LEVELS}), CodecState(**states)
 
 
 def _effective(ls: LevelState) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -189,38 +245,62 @@ def decode_level_values(meta: LevelMeta, indices: torch.Tensor) -> torch.Tensor:
 
 
 def _coded_to_physical(x_coded: torch.Tensor, meta: LevelMeta) -> torch.Tensor:
-    """phys[r, d] = coded[r, group2param[d]] (non-patch: no row mixing)."""
-    return x_coded.index_select(1, meta.group2param)
+    """phys[r, d] = coded[beta_row[r, d], group2param[d]]; without row
+    mixing beta_row[r, d] = r."""
+    if meta.beta_row is None:
+        return x_coded.index_select(1, meta.group2param)
+    return x_coded[meta.beta_row, meta.group2param[None, :]]
 
 
 def decode_state(codec: Codec, indices: Dict[str, object], cfg: ModalityConfig) -> CodecState:
-    """A fully frozen CodecState from the transmitted indices alone."""
-    if cfg.patch:
-        raise NotImplementedError(_PATCH_TODO)
-    meta = codec.w
-    # validated where they arrive (the host, for indices read from a
-    # bitstream), before they move to the device
-    idx = torch.as_tensor(indices["w"], dtype=torch.int64)
-    if idx.numel():
-        lo, hi = torch.stack(torch.aminmax(idx)).tolist()
-        if lo < 0 or hi >= meta.eps.shape[0]:
-            raise ValueError(f"indices outside the codebook's {meta.eps.shape[0]} samples")
-    idx = idx.to(codec.device)
-    R = idx.shape[0]
-    vals = _coded_to_physical(decode_level_values(meta, idx), meta)
-    dev = vals.device
-    w = LevelState(
-        q=Gaussian(loc=vals, log_scale=torch.full((R, meta.D), -1e9, device=dev)),
-        frozen_mask=torch.ones(R, meta.D, device=dev),
-        frozen_val=vals,
-        kl_beta=torch.zeros(R, meta.n_groups, device=dev),
-        compressed=torch.ones(R, meta.n_groups, dtype=torch.bool, device=dev),
-        indices=idx,
-    )
-    return CodecState(w=w, h=None, hh=None)
+    """A fully frozen CodecState from the transmitted indices alone
+    ({'w': (R, G)}, and 'h', 'hh' for a patch config)."""
+
+    def level(name: str) -> LevelState:
+        meta = codec.meta(name)
+        # validated where they arrive (the host, for indices read from a
+        # bitstream), before they move to the device
+        idx = torch.as_tensor(indices[name], dtype=torch.int64)
+        if idx.numel():
+            lo, hi = torch.stack(torch.aminmax(idx)).tolist()
+            if lo < 0 or hi >= meta.eps.shape[0]:
+                raise ValueError(f"level {name}: indices outside the codebook's "
+                                 f"{meta.eps.shape[0]} samples")
+        idx = idx.to(codec.device)
+        R = idx.shape[0]
+        vals = _coded_to_physical(decode_level_values(meta, idx), meta)
+        dev = vals.device
+        return LevelState(
+            q=Gaussian(loc=vals, log_scale=torch.full((R, meta.D), -1e9, device=dev)),
+            frozen_mask=torch.ones(R, meta.D, device=dev),
+            frozen_val=vals,
+            kl_beta=torch.zeros(R, meta.n_groups, device=dev),
+            compressed=torch.ones(R, meta.n_groups, dtype=torch.bool, device=dev),
+            indices=idx,
+        )
+
+    return CodecState(**{name: level(name) for name in codec.level_names})
 
 
-Noise = Tuple[torch.Tensor, torch.Tensor]
+# Standard-normal noise of one predict: (LPE (R, S, *lpe_spatial,
+# latent_dim), w (R, S, n_inr)), and for a patch config h (R2, S, D_h) and
+# hh (R3, S, D_hh) after them.
+Noise = Sequence[torch.Tensor]
+
+
+def draw_noise(codec: Codec, state: CodecState, cfg: ModalityConfig, sample_size: int,
+               generator: Optional[torch.Generator] = None) -> Noise:
+    """The noise of one ``predict``, drawn from ``generator`` in the order the
+    JAX package splits its key (LPE, then w, h, hh: ``encoder.py:304``,
+    ``models/mappings.py:147``), or zero without one."""
+    R, S = state.w.q.loc.shape[0], sample_size
+    shapes = [(R, S, *cfg.lpe_spatial, cfg.latent_dim), (R, S, cfg.n_inr_params)]
+    for name in codec.level_names[1:]:
+        shapes.append((state.level(name).q.loc.shape[0], S, codec.meta(name).D))
+    dev = state.w.q.loc.device
+    if generator is None:
+        return [torch.zeros(s, device=dev) for s in shapes]
+    return [torch.randn(s, generator=generator, device=dev) for s in shapes]
 
 
 def predict(codec: Codec, state: CodecState, X: torch.Tensor, cfg: ModalityConfig,
@@ -229,41 +309,34 @@ def predict(codec: Codec, state: CodecState, X: torch.Tensor, cfg: ModalityConfi
     """Render the INR from the current (partially coded) posteriors:
     X (R, P, fourier_dim) -> (R, S, P, out_dim), S = ``sample_size``.
 
-    The standard-normal noise is ``noise`` = (LPE noise (R, S, *lpe_spatial,
-    latent_dim), weight noise (R, S, n_inr_params)) when given (the tests
-    replay the JAX package's draws through it); else drawn from
-    ``generator`` in that order, as the JAX package splits its key
-    (``encoder.py:280-329``, ``models/mappings.py:130-152``); else zero,
-    which renders the posterior means and is exact for a fully frozen state
-    (every scale is zero): the decode form."""
-    if cfg.patch:
-        raise NotImplementedError(_PATCH_TODO)
+    The standard-normal noise is ``noise`` (``Noise``) when given (the tests
+    replay the JAX package's draws through it, and the ELBO draws it before
+    a rematerialised forward); else ``draw_noise`` from ``generator``; else
+    zero, which renders the posterior means and is exact for a fully frozen
+    state (every scale is zero): the decode form."""
     loc, scale = _effective(state.w)
     n_inr = cfg.n_inr_params
     R, D = loc.shape
     S = sample_size
     dev = loc.device
-    if noise is not None:
-        lpe_eps, w_eps = (torch.as_tensor(n, dtype=torch.float32, device=dev) for n in noise)
-    elif generator is not None:
-        lpe_eps = torch.randn(R, S, *cfg.lpe_spatial, cfg.latent_dim, generator=generator,
-                              device=dev)
-        w_eps = torch.randn(R, S, n_inr, generator=generator, device=dev)
-    else:
-        lpe_eps = torch.zeros(R, S, D - n_inr, device=dev)
-        w_eps = torch.zeros(R, S, n_inr, device=dev)
-    lpe = loc[:, None, n_inr:] + scale[:, None, n_inr:] * lpe_eps.reshape(R, S, D - n_inr)
+    if noise is None:
+        noise = draw_noise(codec, state, cfg, S, generator)
+    eps = [torch.as_tensor(n, dtype=torch.float32, device=dev) for n in noise]
+    lpe = loc[:, None, n_inr:] + scale[:, None, n_inr:] * eps[0].reshape(R, S, D - n_inr)
     lpe = lpe.reshape(R, S, *cfg.lpe_spatial, cfg.latent_dim)
     pe = lpe_to_pe(codec.up, lpe, cfg)
     x = torch.cat([X[:, None].expand(*pe.shape[:3], X.shape[-1]), pe], -1)
-    h_w = sample_hierarchical_latents(loc[:, :n_inr], scale[:, :n_inr], w_eps, cfg)
+    upper = {}
+    for name, e in zip(codec.level_names[1:], eps[2:]):
+        upper[name] = (*_effective(state.level(name)), e)
+    h_w = sample_hierarchical_latents(loc[:, :n_inr], scale[:, :n_inr], eps[1], cfg, **upper)
     return inr_forward_fused(x, h_w, codec.A, cfg)
 
 
 def decode(codec: Codec, indices: Dict[str, object], X, cfg: ModalityConfig) -> torch.Tensor:
-    """indices {'w': (R, G)} -> reconstruction (R, P, out) on the codec's
-    device, in exact f32 (TF32 off), as the JAX package decodes at
-    precision='highest'."""
+    """indices {'w': (R, G)} (and 'h', 'hh' for a patch config) ->
+    reconstruction (R, P, out) on the codec's device, in exact f32 (TF32
+    off), as the JAX package decodes at precision='highest'."""
     with exact_f32():
         state = decode_state(codec, indices, cfg)
         X = torch.as_tensor(X, dtype=torch.float32, device=codec.device)

@@ -1,24 +1,29 @@
 """The sender's half of ``recombiner_tpu/coding/encoder.py``: per-datapoint
 posterior optimisation (the MC-ELBO with per-group KL annealing, Adam; for a
 fixed number of epochs or up to a plateau) and the steps of progressive A*
-coding with their finetunes, non-patch configs.
+coding with their finetunes, for every level (w, and h and hh of a patch
+config).
 
 The codec context, the state classes and ``predict`` live in
 ``coding/decoder.py``; this module changes a ``CodecState`` and returns a
 new one. Posteriors stay in PHYSICAL (param-order) layout, so the
-differentiated path has no gathers; the coded (group-order) view is taken
-forward-only, through ``param2group``.
+differentiated path has no gathers; the coded (group-order, budget-mixed
+row) view is taken forward-only, through ``param2group`` and ``perm_g2p``.
+With ``remat`` the ELBO's forward is recomputed in the backward
+(``torch.utils.checkpoint``), with its noise drawn before it.
 
 Determinism: group KLs are summed over a padded (R, G, Gmax) window with a
 mask, not with ``index_add_``/``scatter_add_`` (atomics on CUDA), the
 SIREN chain's gradient comes from ``siren_bwd``, whose sums run in a fixed
-order, and the epochs run with cuDNN restricted to deterministic
-algorithms (``deterministic_convs``: its own choice for the conv stack's
-data gradient sums in no fixed order on the H100), so an encode on one
-card repeats bit for bit given the generator. ``chip_smoke.py`` checks it
-there: two 20-epoch ``optimize`` runs from one state and generator state,
-and a crashed and resumed encode against an uninterrupted one, agree bit
-for bit (PERF.md section 5).
+order, the patch hierarchy's broadcasts and stitch are reshapes, expands
+and permutes (``models/mappings.py``), and the epochs run with cuDNN
+restricted to deterministic algorithms (``deterministic_convs``: its own
+choice for the conv stack's data gradient sums in no fixed order on the
+H100), so an encode on one card repeats bit for bit given the generator.
+``chip_smoke.py`` checks it there: two 20-epoch ``optimize`` runs from one
+state and generator state, and crashed and resumed encodes (CIFAR, and
+Kodak at level h) against uninterrupted ones, agree bit for bit (PERF.md
+section 5).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from recombiner_tpu_torch.coding.decoder import (
     Codec,
@@ -36,6 +42,7 @@ from recombiner_tpu_torch.coding.decoder import (
     LevelMeta,
     LevelState,
     Noise,
+    draw_noise,
     predict,
 )
 from recombiner_tpu_torch.config import ModalityConfig
@@ -55,9 +62,12 @@ def level_kl(ls: LevelState, meta: LevelMeta) -> torch.Tensor:
 
 
 def _to_coded(x: torch.Tensor, meta: LevelMeta) -> torch.Tensor:
-    """Physical (R, D) -> coded layout (R, D): coded column c reads physical
-    column param2group[c] (non-patch: no row mixing)."""
-    return x.index_select(1, meta.param2group)
+    """Physical (R, D) -> coded layout (R, D): coded cell (r', c) reads
+    physical (perm_g2p[r', c], param2group[c]). Forward-only gathers."""
+    x = x.index_select(1, meta.param2group)
+    if meta.perm_g2p is not None:
+        x = torch.gather(x, 0, meta.perm_g2p)
+    return x
 
 
 def _group_windows(meta: LevelMeta, groups: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -79,9 +89,15 @@ def group_kl(ls: LevelState, meta: LevelMeta) -> torch.Tensor:
 
 
 def beta_weighted_kl(ls: LevelState, meta: LevelMeta) -> torch.Tensor:
-    """sum over cells of beta[owning group] * KL(cell); no gradient flows
-    through beta."""
-    return (level_kl(ls, meta) * ls.kl_beta.detach()[:, meta.group_of_col]).sum()
+    """sum over cells of beta[owning coded row, owning group] * KL(cell). The
+    beta factor is a gather of a detached tensor, so no gradient flows
+    through it and the differentiated path stays elementwise."""
+    beta = ls.kl_beta.detach()
+    if meta.beta_row is None:
+        factor = beta[:, meta.group_of_col]
+    else:
+        factor = beta[meta.beta_row, meta.group_of_col[None, :]]
+    return (level_kl(ls, meta) * factor).sum()
 
 
 def update_betas(ls: LevelState, meta: LevelMeta, bits_per_group: float,
@@ -99,29 +115,79 @@ def update_betas(ls: LevelState, meta: LevelMeta, bits_per_group: float,
     return dataclasses.replace(ls, kl_beta=beta)
 
 
+def _anneal_all(state: CodecState, codec: Codec, cfg: ModalityConfig) -> CodecState:
+    for name in codec.level_names:
+        state = state.replace_level(name, update_betas(state.level(name), codec.meta(name),
+                                                       cfg.bits_per_group))
+    return state
+
+
 # ------------------------------------------------------------ optimisation
 
 
 NoiseSource = Union[torch.Generator, Callable[[], Noise]]
 
 
+def trainable_levels(codec: Codec) -> Tuple[str, ...]:
+    """The levels whose posteriors are optimised, in the order of optax's
+    leaves over the JAX package's trainables dict {'w', 'h', 'hh'}: sorted
+    by name."""
+    return tuple(sorted(codec.level_names))
+
+
+def _posteriors(state: CodecState, levels: Sequence[str]) -> List[torch.Tensor]:
+    return [t for name in levels for t in (state.level(name).q.loc,
+                                           state.level(name).q.log_scale)]
+
+
+def _with_posteriors(state: CodecState, levels: Sequence[str],
+                     params: Sequence[torch.Tensor]) -> CodecState:
+    for k, name in enumerate(levels):
+        state = state.replace_level(name, dataclasses.replace(
+            state.level(name), q=Gaussian(params[2 * k], params[2 * k + 1])))
+    return state
+
+
 def elbo_loss(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
               cfg: ModalityConfig, sample_size: int,
               generator: Optional[torch.Generator] = None,
-              noise: Optional[Noise] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              noise: Optional[Noise] = None,
+              remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MC-ELBO of ``_elbo_loss_fn(with_aux=True)``: (mean squared error
-    times the number of rows plus the beta-weighted KL, that scaled mean
-    squared error). The second is the distortion term that
-    ``optimize_adaptive(monitor='mse')`` watches."""
-    y_hat = predict(codec, state, X, cfg, sample_size, generator=generator, noise=noise)
-    mse = torch.mean((y_hat - Y[:, None]) ** 2) * Y.shape[0]
-    return mse + beta_weighted_kl(state.w, codec.w), mse
+    times the number of rows plus every level's beta-weighted KL, that
+    scaled mean squared error). The second is the distortion term that
+    ``optimize_adaptive(monitor='mse')`` watches.
+
+    ``remat=True`` recomputes the forward in the backward
+    (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``,
+    ``encoder.py:437-438``). The noise is drawn before the checkpointed
+    function and passed in: a recomputed forward that drew from the
+    generator again would get other noise, and a wrong gradient."""
+    if noise is None:
+        noise = draw_noise(codec, state, cfg, sample_size, generator)
+    levels = trainable_levels(codec)
+
+    def loss_of(*params):
+        st = _with_posteriors(state, levels, params)
+        y_hat = predict(codec, st, X, cfg, sample_size, noise=noise)
+        mse = torch.mean((y_hat - Y[:, None]) ** 2) * Y.shape[0]
+        kl = sum(beta_weighted_kl(st.level(n), codec.meta(n)) for n in codec.level_names)
+        return mse + kl, mse
+
+    params = _posteriors(state, levels)
+    if remat:
+        # the function draws no random numbers, so there is no RNG state to
+        # preserve for the recomputation
+        return torch.utils.checkpoint.checkpoint(loss_of, *params, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return loss_of(*params)
 
 
 @dataclasses.dataclass
 class AdamState:
     """optax's ``ScaleByAdamState``: the step count and the two moments, one
-    tensor per parameter (here [loc, log_scale])."""
+    tensor per parameter ([loc, log_scale] of each level, the levels in
+    ``trainable_levels`` order)."""
 
     count: int
     mu: List[torch.Tensor]
@@ -129,25 +195,28 @@ class AdamState:
 
     def leaves(self, scheduled: bool) -> List[np.ndarray]:
         """The optax state's leaves in ``jax.tree_util`` order, as an encode
-        snapshot stores them: count, mu.loc, mu.log_scale, nu.loc,
-        nu.log_scale, and with a schedule (``_make_opt``'s chain) the
-        schedule's count after them."""
+        snapshot stores them: count, mu (loc and log_scale of each level, the
+        levels sorted: h, hh, w), nu alike, and with a schedule
+        (``_make_opt``'s chain) the schedule's count after them."""
         count = np.asarray(self.count, np.int32)
         out = [count] + [t.detach().cpu().numpy() for t in self.mu + self.nu]
         return out + [count] if scheduled else out
 
     @classmethod
-    def from_leaves(cls, leaves: Sequence, scheduled: bool, device) -> "AdamState":
-        """Inverse of ``leaves``, from arrays of either package."""
-        if len(leaves) != (6 if scheduled else 5):
-            raise ValueError(f"{len(leaves)} optimizer leaves; Adam "
-                             f"{'with' if scheduled else 'without'} a schedule has "
-                             f"{6 if scheduled else 5}")
+    def from_leaves(cls, leaves: Sequence, scheduled: bool, device,
+                    n_levels: int = 1) -> "AdamState":
+        """Inverse of ``leaves``, from arrays of either package, for
+        ``n_levels`` optimised levels."""
+        n = 4 * n_levels
+        want = n + 1 + int(scheduled)
+        if len(leaves) != want:
+            raise ValueError(f"{len(leaves)} optimizer leaves; Adam over {n_levels} level(s) "
+                             f"{'with' if scheduled else 'without'} a schedule has {want}")
         count = int(np.asarray(leaves[0]))
-        if scheduled and int(np.asarray(leaves[5])) != count:
+        if scheduled and int(np.asarray(leaves[-1])) != count:
             raise ValueError("the schedule's step count differs from Adam's")
-        t = [torch.tensor(np.asarray(a, np.float32), device=device) for a in leaves[1:5]]
-        return cls(count, t[:2], t[2:])
+        t = [torch.tensor(np.asarray(a, np.float32), device=device) for a in leaves[1:n + 1]]
+        return cls(count, t[:n // 2], t[n // 2:])
 
 
 LearningRate = Union[float, Callable[[int], float]]
@@ -196,45 +265,38 @@ def adam_step(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], st:
     return AdamState(count, mu, nu)
 
 
-def _trainables(ls: LevelState) -> List[torch.Tensor]:
-    return [ls.q.loc.detach().clone().requires_grad_(),
-            ls.q.log_scale.detach().clone().requires_grad_()]
+def _trainables(codec: Codec, state: CodecState) -> List[torch.Tensor]:
+    return [t.detach().clone().requires_grad_()
+            for t in _posteriors(state, trainable_levels(codec))]
 
 
-def _settled(ls: LevelState, params: Sequence[torch.Tensor]) -> CodecState:
-    ls = dataclasses.replace(ls, q=Gaussian(params[0].detach(), params[1].detach()))
-    return CodecState(w=ls, h=None, hh=None)
+def _settled(codec: Codec, state: CodecState, params: Sequence[torch.Tensor]) -> CodecState:
+    return _with_posteriors(state, trainable_levels(codec), [p.detach() for p in params])
 
 
-def _epoch(codec: Codec, ls: LevelState, params: List[torch.Tensor], X: torch.Tensor,
+def _epoch(codec: Codec, state: CodecState, params: List[torch.Tensor], X: torch.Tensor,
            Y: torch.Tensor, cfg: ModalityConfig, source: NoiseSource, i: int,
-           opt_state: AdamState, lr: LearningRate, sample_size: int):
-    """One epoch of ``encoder.py:487-569``: the gradient first, then the
-    betas annealed when ``i % KL_ADJUST_GAP == 0`` (on the pre-step
-    posteriors), then the Adam step. Returns (state, Adam state, loss, scaled
-    mse), the last two detached."""
-    ls = dataclasses.replace(ls, q=Gaussian(*params))
+           opt_state: AdamState, lr: LearningRate, sample_size: int, remat: bool):
+    """One epoch of ``encoder.py:487-569``: the gradient of every level's
+    posteriors first, then every level's betas annealed when ``i %
+    KL_ADJUST_GAP == 0`` (on the pre-step posteriors), then the Adam step.
+    Returns (state, Adam state, loss, scaled mse), the last two detached."""
+    state = _with_posteriors(state, trainable_levels(codec), params)
     drawn = ({"generator": source} if isinstance(source, torch.Generator)
              else {"noise": source()})
-    loss, mse = elbo_loss(codec, CodecState(w=ls, h=None, hh=None), X, Y, cfg, sample_size,
-                          **drawn)
+    loss, mse = elbo_loss(codec, state, X, Y, cfg, sample_size, remat=remat, **drawn)
     grads = torch.autograd.grad(loss, params)
     if i % KL_ADJUST_GAP == 0:
-        ls = update_betas(ls, codec.w, cfg.bits_per_group)
+        state = _anneal_all(state, codec, cfg)
     opt_state = adam_step(params, grads, opt_state, lr)
-    return ls, opt_state, loss.detach(), mse.detach()
-
-
-def _check_ported(cfg: ModalityConfig) -> None:
-    if cfg.patch:
-        raise NotImplementedError("patch configs are not ported yet (ROADMAP.md, port "
-                                  "queue: patch / kodak_mini)")
+    return state, opt_state, loss.detach(), mse.detach()
 
 
 def optimize(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
              cfg: ModalityConfig, generator: NoiseSource, *, n_epochs: int,
              lr: LearningRate = 2e-4, sample_size: int = 5,
-             opt_state: Optional[AdamState] = None, return_opt_state: bool = False):
+             opt_state: Optional[AdamState] = None, return_opt_state: bool = False,
+             remat: bool = False):
     """MC-ELBO posterior optimisation with beta annealing, in the order of
     ``encoder.py:487-569`` (``_epoch``; ``i`` restarts at 0 in each call).
     Adam starts fresh unless ``opt_state`` is given; with
@@ -242,16 +304,16 @@ def optimize(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
     be split into chunks without changing it. Fresh noise per epoch from
     ``generator`` (or, in the tests, a callable that returns each epoch's
     noise). Runs in exact f32 (TF32 off in cuBLAS and cuDNN), the port's
-    one precision, on deterministic cuDNN algorithms."""
-    _check_ported(cfg)
-    ls = state.w
-    params = _trainables(ls)
+    one precision, on deterministic cuDNN algorithms. Every level is
+    optimised and annealed; ``remat`` recomputes each epoch's forward in its
+    backward (``elbo_loss``), which changes no number."""
+    params = _trainables(codec, state)
     opt_state = adam_init(params) if opt_state is None else opt_state
     with exact_f32(), deterministic_convs():
         for i in range(n_epochs):
-            ls, opt_state, _, _ = _epoch(codec, ls, params, X, Y, cfg, generator, i, opt_state,
-                                         lr, sample_size)
-    out = _settled(ls, params)
+            state, opt_state, _, _ = _epoch(codec, state, params, X, Y, cfg, generator, i,
+                                            opt_state, lr, sample_size, remat)
+    out = _settled(codec, state, params)
     return (out, opt_state) if return_opt_state else out
 
 
@@ -259,7 +321,8 @@ def optimize_adaptive(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch
                       cfg: ModalityConfig, generator: NoiseSource, epoch0: int, max_epoch: int,
                       min_epoch: float, rel_tol: float, es_carry: Tuple[float, float], *,
                       lr: LearningRate = 2e-4, sample_size: int = 5, window: int = 25,
-                      opt_state: Optional[AdamState] = None, monitor: str = "loss"):
+                      opt_state: Optional[AdamState] = None, monitor: str = "loss",
+                      remat: bool = False):
     """``optimize`` that stops on a plateau (``encoder.py:580-685``): the same
     epochs, from global epoch ``epoch0`` up to ``max_epoch``; after every
     ``window``-th global epoch, once ``min_epoch`` epochs have run, stop
@@ -274,21 +337,19 @@ def optimize_adaptive(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch
     and the test is evaluated in f32 as the JAX package's is; the host
     reads it once per window. Returns (state, Adam state, es_carry as
     floats, global epochs done, stopped)."""
-    _check_ported(cfg)
     if monitor not in ("loss", "mse"):
         raise ValueError(f"monitor must be 'loss' or 'mse', not {monitor!r}")
     window = int(window)
-    ls = state.w
-    params = _trainables(ls)
+    params = _trainables(codec, state)
     opt_state = adam_init(params) if opt_state is None else opt_state
-    dev = ls.q.loc.device
+    dev = state.w.q.loc.device
     prev, cur = (torch.tensor(float(v), dtype=torch.float32, device=dev) for v in es_carry)
     tol = torch.tensor(float(rel_tol), dtype=torch.float32, device=dev)
     i, stopped = int(epoch0), False
     with exact_f32(), deterministic_convs():
         while i < max_epoch and not stopped:
-            ls, opt_state, loss, mse = _epoch(codec, ls, params, X, Y, cfg, generator, i,
-                                              opt_state, lr, sample_size)
+            state, opt_state, loss, mse = _epoch(codec, state, params, X, Y, cfg, generator, i,
+                                                 opt_state, lr, sample_size, remat)
             cur = cur + (mse if monitor == "mse" else loss)
             i += 1
             if i % window == 0:
@@ -296,7 +357,7 @@ def optimize_adaptive(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch
                 if i >= min_epoch:
                     stopped = bool((prev - win < tol * win.abs()) & torch.isfinite(prev))
                 prev, cur = win, torch.zeros_like(cur)
-    return _settled(ls, params), opt_state, (prev.item(), cur.item()), i, stopped
+    return _settled(codec, state, params), opt_state, (prev.item(), cur.item()), i, stopped
 
 
 # ----------------------------------------------------------- encode step
@@ -309,7 +370,10 @@ def encode_step_level(ls: LevelState, meta: LevelMeta) -> LevelState:
 
     log q(z) - log p(z) at z = p_loc + p_scale * eps is alpha * eps^2 +
     beta * eps + const; the constant does not move the argmax. Rows whose
-    groups are all coded are left as they are."""
+    groups are all coded are left as they are. With row mixing a coded
+    row's window reads and writes physical cells (perm_g2p[r', c],
+    param2group[c]): distinct for distinct (r', c), since each column of
+    perm_g2p is a permutation, so the scatter has no duplicates."""
     R, Gmax = ls.q.loc.shape[0], meta.Gmax
     with torch.no_grad():
         kls = group_kl(ls, meta) / LOG2
@@ -317,10 +381,14 @@ def encode_step_level(ls: LevelState, meta: LevelMeta) -> LevelState:
         g = torch.argmax(kls, dim=1)  # first maximum, as jnp.argmax
         cols, valid = _group_windows(meta, g)  # (R, Gmax)
         d_cols = meta.param2group[cols]
+        if meta.perm_g2p is not None:
+            rows = torch.gather(meta.perm_g2p, 1, cols)
+        else:
+            rows = torch.arange(R, device=g.device)[:, None].expand(R, Gmax)
         start = meta.group_start[g][:, None]
         win = start + torch.arange(Gmax, device=g.device)  # < Dpad: the prior is padded
-        q_loc = torch.gather(ls.q.loc, 1, d_cols)
-        q_scale = scale_transform(torch.gather(ls.q.log_scale, 1, d_cols))
+        q_loc = ls.q.loc[rows, d_cols]
+        q_scale = scale_transform(ls.q.log_scale[rows, d_cols])
         p_loc, p_scale = meta.p_loc[win], meta.p_scale[win]
 
         inv_q2 = 1.0 / (q_scale * q_scale)
@@ -334,9 +402,9 @@ def encode_step_level(ls: LevelState, meta: LevelMeta) -> LevelState:
         z = p_loc + p_scale * meta.eps[idx]
 
         active = ~ls.compressed.all(dim=1)
+        # valid lanes of active rows only: distinct cells, so the scatter has
+        # no duplicates (the JAX package routes the others out of bounds)
         write = valid & active[:, None]
-        rows = torch.arange(R, device=g.device)[:, None].expand(R, Gmax)
-        # valid lanes only: distinct cells, so the scatter has no duplicates
         r_w, c_w = rows[write], d_cols[write]
         frozen_val = ls.frozen_val.clone()
         frozen_mask = ls.frozen_mask.clone()
@@ -354,10 +422,7 @@ def encode_step_level(ls: LevelState, meta: LevelMeta) -> LevelState:
 
 
 def encode_step(codec: Codec, state: CodecState, level: str = "w") -> CodecState:
-    if level != "w":
-        raise NotImplementedError("levels h and hh come with the patch configs (ROADMAP.md, "
-                                  "port queue: patch / kodak_mini)")
-    return dataclasses.replace(state, w=encode_step_level(state.w, codec.w))
+    return state.replace_level(level, encode_step_level(state.level(level), codec.meta(level)))
 
 
 # ------------------------------------------------------- the coding loop
@@ -391,10 +456,11 @@ def finetune_noise(generator: torch.Generator, crn: bool = False) -> FinetuneNoi
 def encode_chunk(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
                  cfg: ModalityConfig, noise: FinetuneNoise, min_epoch: float = 0,
                  rel_tol: float = 0.0, *, n_steps: int, n_ft: int, lr: float = 2e-4,
-                 sample_size: int = 5, window: int = 0,
-                 lr_schedule: Optional[str] = None) -> Tuple[CodecState, np.ndarray]:
-    """``n_steps`` group steps of ``encoder.py:796-926``, each an
-    ``encode_step`` followed by a finetune with a fresh Adam whose noise
+                 sample_size: int = 5, window: int = 0, lr_schedule: Optional[str] = None,
+                 level: str = "w", remat: bool = False) -> Tuple[CodecState, np.ndarray]:
+    """``n_steps`` group steps of ``encoder.py:796-926`` at ``level``, each an
+    ``encode_step`` followed by a finetune (of every level, as the JAX
+    package's) with a fresh Adam whose noise
     comes from ``noise()`` (``finetune_noise``: the main generator, or the
     restarted CRN stream). The finetune runs ``n_ft`` epochs, or with
     ``window > 0`` stops on a plateau of the loss (``optimize_adaptive``
@@ -407,15 +473,15 @@ def encode_chunk(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tens
     rate = cosine_lr(lr, 0.0, max(n_ft, 1)) if lr_schedule == "cosine" else lr
     ran = np.zeros(n_steps, np.int32)
     for k in range(n_steps):
-        state = encode_step(codec, state)
+        state = encode_step(codec, state, level)
         if n_ft == 0:
             continue
         if window > 0:
             state, _, _, ran[k], _ = optimize_adaptive(
                 codec, state, X, Y, cfg, noise(), 0, n_ft, min_epoch, rel_tol, (math.inf, 0.0),
-                lr=rate, sample_size=sample_size, window=window)
+                lr=rate, sample_size=sample_size, window=window, remat=remat)
         else:
             state = optimize(codec, state, X, Y, cfg, noise(), n_epochs=n_ft, lr=rate,
-                             sample_size=sample_size)
+                             sample_size=sample_size, remat=remat)
             ran[k] = n_ft
     return state, ran

@@ -1,9 +1,10 @@
 """The progressive encode loop of ``recombiner_tpu/coding/progressive.py``
 (less its multi-device and precision options): optimise the posteriors
-(phase 1, a fixed number of epochs or up to a plateau), then code every
-row's highest-KL group one step at a time, each step followed by a
-finetune with a fresh Adam (a fixed budget or up to a plateau), snapshot
-along the way, and decode the indices.
+(phase 1, a fixed number of epochs or up to a plateau), then, level by
+level (hh, h, w for a patch config; w alone otherwise), code every row's
+highest-KL group one step at a time, each step followed by a finetune of
+every level with a fresh Adam (a fixed budget or up to a plateau),
+snapshot along the way, and decode the indices.
 
 Everything runs in exact f32 (TF32 off in cuBLAS and cuDNN; ``optimize``,
 the A* scoring and ``decode`` each set it), which is what the JAX package
@@ -39,9 +40,6 @@ from recombiner_tpu_torch.device import exact_f32
 from recombiner_tpu_torch.io import encode_state
 from recombiner_tpu_torch.metrics import metric
 
-_LATER = "ROADMAP.md, port queue 1: patch / kodak_mini"
-
-
 @dataclasses.dataclass
 class EncodeResult:
     state: CodecState
@@ -68,11 +66,15 @@ def distortion_of(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Ten
 
 
 def kl_bits_summary(codec: Codec, state: CodecState) -> Dict[str, float]:
-    bits = (group_kl(state.w, codec.w) / np.log(2.0)).cpu().numpy()
-    mask = ~state.w.compressed.cpu().numpy()
-    if not mask.any():
-        return {}
-    return {"w_max_bits": float(bits[mask].max()), "w_ave_bits": float(bits[mask].mean())}
+    out = {}
+    for name in codec.level_names:
+        ls = state.level(name)
+        bits = (group_kl(ls, codec.meta(name)) / np.log(2.0)).cpu().numpy()
+        mask = ~ls.compressed.cpu().numpy()
+        if mask.any():
+            out[f"{name}_max_bits"] = float(bits[mask].max())
+            out[f"{name}_ave_bits"] = float(bits[mask].mean())
+    return out
 
 
 def finetune_epochs(cfg: ModalityConfig, n_groups: int, level: str) -> int:
@@ -106,33 +108,34 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
       plateau of ``phase1_monitor`` ('mse' or 'loss'). It runs in chunks of
       ``chunk_epochs`` (a multiple of 10, so chunking changes no number),
       each followed by a snapshot when ``state_path`` is given;
-    - the finetunes: the reference budget or ``finetune_overrides['w']``,
-      a ceiling under ``finetune_stop``; ``finetune_crn`` (None: on for
-      patch configs only) gives every finetune one noise stream;
+    - the coding loop: levels hh, h, w for a patch config (w alone
+      otherwise); each level's finetunes take the reference budget or
+      ``finetune_overrides[level]``, a ceiling under ``finetune_stop``;
+      ``finetune_crn`` (None: on for patch configs only) gives every
+      finetune one noise stream;
       ``finetune_lr`` and ``finetune_lr_schedule`` ('cosine') need
       ``fused_steps`` with a budget of at most ``chunk_epochs``, as in the
       JAX package. ``fused_steps=K`` groups K steps per snapshot and
       report; it changes no number. Unfused, a snapshot follows every
-      ``save_every`` groups.
+      ``save_every`` groups of a level;
+    - ``remat``: every epoch recomputes its forward in its backward
+      (``encoder.elbo_loss``); it changes no number.
 
     Resume: ``phase1_epochs_done``, ``phase1_opt_leaves`` (optax's leaf
     order), ``phase1_es`` and ``resume_generator_state`` continue phase 1
     where a snapshot left it; a state whose groups are partly coded skips
-    phase 1 and the coded groups. ``state_extra`` is merged into every
+    phase 1 and, level by level, the coded groups. ``state_extra`` is merged into every
     snapshot's header. Snapshots go through
     ``encode_state.save_encode_state``, looked up at each call."""
-    if remat:
-        raise NotImplementedError(f"remat is not ported yet ({_LATER})")
-    if cfg.patch:
-        raise NotImplementedError("patch configs are not ported yet (ROADMAP.md, port "
-                                  "queue: patch / kodak_mini)")
     dev = codec.device
     X = torch.as_tensor(X, dtype=torch.float32, device=dev)
     Y = torch.as_tensor(Y, dtype=torch.float32, device=dev)
-    meta = codec.w
-    n_ft = (finetune_overrides or {}).get("w", finetune_epochs(cfg, meta.n_groups, "w"))
-    fused = bool(fused_steps) and 0 < n_ft <= chunk_epochs
-    if (finetune_lr or finetune_lr_schedule) and n_ft > 0 and not fused:
+    order = ("hh", "h", "w") if cfg.patch else ("w",)
+    n_ft = {level: (finetune_overrides or {}).get(
+        level, finetune_epochs(cfg, codec.meta(level).n_groups, level)) for level in order}
+    fused = {level: bool(fused_steps) and 0 < n <= chunk_epochs for level, n in n_ft.items()}
+    if (finetune_lr or finetune_lr_schedule) and any(n_ft[lv] > 0 and not fused[lv]
+                                                     for lv in order):
         raise ValueError("finetune_lr/finetune_lr_schedule require the fused coding path "
                          "(fused_steps with n_ft <= chunk_epochs)")
     if resume_generator_state is not None:
@@ -149,18 +152,22 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
                    **(state_extra or {})},
             opt_leaves=None if opt_state is None else opt_state.leaves(scheduled))
 
+    def any_coded(state: CodecState) -> bool:
+        return any(bool(state.level(lv).compressed.any()) for lv in codec.level_names)
+
     t0 = time.perf_counter()
     if verbose:
         d0 = distortion_of(codec, state, X, Y, cfg)
         print(f"Initialization: average distortion {np.mean(d0):.4f}", flush=True)
-    resuming = bool(state.w.compressed.any())
+    resuming = any_coded(state)
     if resuming and verbose:
         print("Resuming encode from restored state; skipping phase-1 optimization", flush=True)
 
     timings["phase1_epochs"] = 0
     if n_optimize_epochs > phase1_epochs_done and not resuming:
         opt_state = (None if phase1_opt_leaves is None
-                     else AdamState.from_leaves(phase1_opt_leaves, scheduled, dev))
+                     else AdamState.from_leaves(phase1_opt_leaves, scheduled, dev,
+                                                len(codec.level_names)))
         if opt_state is not None and verbose:
             print(f"Resuming phase-1 optimization at {phase1_epochs_done}/{n_optimize_epochs} "
                   "epochs", flush=True)
@@ -176,12 +183,12 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
                 state, opt_state, es, done, stopped = optimize_adaptive(
                     codec, state, X, Y, cfg, generator, done, done + n, min_epochs, rel_tol, es,
                     lr=rate, sample_size=s1, window=window, opt_state=opt_state,
-                    monitor=phase1_monitor)
+                    monitor=phase1_monitor, remat=remat)
                 extra["phase1_es"] = list(es)
             else:
                 state, opt_state = optimize(codec, state, X, Y, cfg, generator, n_epochs=n,
                                             lr=rate, sample_size=s1, opt_state=opt_state,
-                                            return_opt_state=True)
+                                            return_opt_state=True, remat=remat)
                 done += n
             # after a plateau stop the snapshot says phase 1 is over, as the
             # coding loop's snapshots do, so that a resume does not run on
@@ -204,37 +211,42 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
         finetune_crn = bool(cfg.patch)
     noise = finetune_noise(generator, finetune_crn)
     ft_w, ft_tol, ft_min = finetune_stop if finetune_stop is not None else (0, 0.0, 0)
-    per_call = int(fused_steps) if fused else 1
-    report_at = set(np.linspace(0, meta.n_groups - 1, 10).astype(int).tolist())
     timings["finetune_epochs"] = timings["finetune_budget"] = 0
-    step_i = int(state.w.compressed.sum(1).max())  # groups already coded are skipped
-    while step_i < meta.n_groups:
-        k = min(per_call, meta.n_groups - step_i)
-        state, ran = encode_chunk(
-            codec, state, X, Y, cfg, noise, ft_min, ft_tol, n_steps=k, n_ft=n_ft,
-            lr=(finetune_lr or lr) if fused else lr, sample_size=sample_size,
-            window=int(ft_w), lr_schedule=finetune_lr_schedule if fused else None)
-        step_i += k
-        timings["finetune_budget"] += n_ft * k
-        timings["finetune_epochs"] += int(ran.sum())
-        if verbose:
-            if report_at & set(range(step_i - k, step_i)):
-                d = distortion_of(codec, state, X, Y, cfg)
-                print(f"[w] {step_i}/{meta.n_groups} groups coded; distortion "
-                      f"{np.mean(d):.4f}", flush=True)
-            else:
-                print(f"[w] {step_i}/{meta.n_groups}", flush=True)
-        if fused or step_i % save_every == 0:
-            snapshot(state, {"level": "w", "step": step_i - 1,
-                             "phase1_epochs_done": n_optimize_epochs})
+    for level in order:
+        n_groups = codec.meta(level).n_groups
+        per_call = int(fused_steps) if fused[level] else 1
+        report_at = set(np.linspace(0, n_groups - 1, 10).astype(int).tolist())
+        # groups already coded (a resumed state) are skipped
+        step_i = int(state.level(level).compressed.sum(1).max())
+        while step_i < n_groups:
+            k = min(per_call, n_groups - step_i)
+            state, ran = encode_chunk(
+                codec, state, X, Y, cfg, noise, ft_min, ft_tol, n_steps=k, n_ft=n_ft[level],
+                lr=(finetune_lr or lr) if fused[level] else lr, sample_size=sample_size,
+                window=int(ft_w), lr_schedule=finetune_lr_schedule if fused[level] else None,
+                level=level, remat=remat)
+            step_i += k
+            timings["finetune_budget"] += n_ft[level] * k
+            timings["finetune_epochs"] += int(ran.sum())
+            if verbose:
+                if report_at & set(range(step_i - k, step_i)):
+                    d = distortion_of(codec, state, X, Y, cfg)
+                    print(f"[{level}] {step_i}/{n_groups} groups coded; distortion "
+                          f"{np.mean(d):.4f}", flush=True)
+                else:
+                    print(f"[{level}] {step_i}/{n_groups}", flush=True)
+            if fused[level] or step_i % save_every == 0:
+                snapshot(state, {"level": level, "step": step_i - 1,
+                                 "phase1_epochs_done": n_optimize_epochs})
     _sync(dev)
     timings["code_s"] = time.perf_counter() - t1
-    indices = {"w": state.w.indices.cpu().numpy().astype(np.int32)}
+    indices = {name: state.level(name).indices.cpu().numpy().astype(np.int32)
+               for name in codec.level_names}
     # the final reconstruction through the decoder, from the indices alone:
     # exactly what a receiver renders
     y_pred = decode(codec, indices, X, cfg).cpu().numpy()
     dist = metric(Y.cpu().numpy(), y_pred, cfg.name)
-    bitrate = cfg.bitrate_of_groups(meta.n_groups)
+    bitrate = cfg.bitrate_of_groups(*(codec.meta(n).n_groups for n in codec.level_names))
     if verbose:
         print(f"Encode finished: distortion {np.mean(dist):.4f} @ {bitrate:.4f}", flush=True)
     return EncodeResult(state=state, indices=indices, distortion=np.asarray(dist),

@@ -1,4 +1,4 @@
-"""Image loading (CIFAR): PNG -> [0, 1] channel-last, landscape layout, a copy
+"""Image loading (CIFAR, Kodak): PNG -> [0, 1] channel-last, landscape layout, a copy
 of ``recombiner_tpu/data/image.py``. PIL is imported where an image is read,
 so the package imports without it."""
 

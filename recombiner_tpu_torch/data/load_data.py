@@ -1,6 +1,7 @@
 """Test-set loading, the image branch of ``recombiner_tpu/data/load_data.py``:
 one ``test_idx`` selects a fixed slice of a sorted directory of images, in
-the reference's test batches (cifar: 500 images per ``test_idx``)."""
+the reference's test batches (cifar: 500 images per ``test_idx``,
+kodak: one image, 96 patch rows)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""Channel-last datum -> (X, Y) point sets, the non-patch half of
+"""Channel-last datum -> (X, Y) point sets, a copy of
 ``recombiner_tpu/data/pipeline.py``: Fourier-embedded grid coordinates plus
-per-point features."""
+per-point features, split into non-overlapping patches for patch configs
+(one row per patch, row-major over the patch grid)."""
 
 from __future__ import annotations
 
@@ -9,17 +10,23 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from recombiner_tpu_torch.config import ModalityConfig
-from recombiner_tpu_torch.coords import grid_fourier_features
+from recombiner_tpu_torch.coords import grid_fourier_features, patchify
 
 
 def points_from_datum(datum: np.ndarray, cfg: ModalityConfig) -> Tuple[np.ndarray, np.ndarray]:
-    """datum: (*spatial, C) channel-last -> X (1, P, fourier_dim), Y (1, P, C)."""
-    if cfg.patch:
-        raise NotImplementedError("patch configs are not ported yet (ROADMAP.md, port "
-                                  "queue: patch / kodak_mini)")
+    """datum: (*spatial, C) channel-last -> X (rows, P, fourier_dim), Y (rows,
+    P, C); rows = 1, or ``patches_per_datapoint`` for a patch config."""
     feats = grid_fourier_features(cfg.pixel_sizes, cfg.fourier_dim)
-    Y = datum.reshape(1, feats.shape[0], cfg.output_dim)
-    return feats[None].astype(np.float32), Y.astype(np.float32)
+    P = feats.shape[0]
+    if cfg.patch:
+        patches = patchify(datum, cfg.pixel_sizes)
+        rows = patches.shape[0]
+        Y = patches.reshape(rows, P, cfg.output_dim)
+        X = np.broadcast_to(feats, (rows, P, cfg.fourier_dim))
+    else:
+        Y = datum.reshape(1, P, cfg.output_dim)
+        X = feats[None]
+    return X.astype(np.float32), Y.astype(np.float32)
 
 
 def points_from_data(data: Sequence[np.ndarray],

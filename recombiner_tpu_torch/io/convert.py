@@ -1,6 +1,9 @@
-"""Carry the JAX package's artifacts, codec states and codebooks across into
-the port's tensors. Everything arrives as numpy (``np.asarray`` of a JAX
-array, or an array read from disk), so nothing here imports JAX."""
+"""Carry artifacts, codec states and codebooks between the JAX package and
+the port. Into the port, everything arrives as numpy (``np.asarray`` of a
+JAX array, or an array read from disk); out of it, a codec state leaves as
+numpy arrays in the JAX package's dtypes (``level_arrays``), which the JAX
+package's ``LevelState`` takes and its snapshots store. Nothing here
+imports JAX."""
 
 from __future__ import annotations
 
@@ -55,24 +58,38 @@ def level_state_from(ls, device: DeviceLike = None):
 
 
 def codec_state_from(state, device: DeviceLike = None):
-    """A (non-patch) codec state of either package -> the port's ``CodecState``."""
-    from recombiner_tpu_torch.coding.decoder import CodecState
+    """A codec state of either package (levels w, and h and hh for a patch
+    config) -> the port's ``CodecState``."""
+    from recombiner_tpu_torch.coding.decoder import LEVELS, CodecState
 
-    if state.h is not None:
-        raise NotImplementedError("patch configs are not ported yet (ROADMAP.md, port "
-                                  "queue: patch / kodak_mini)")
-    return CodecState(w=level_state_from(state.w, device), h=None, hh=None)
+    return CodecState(**{name: level_state_from(getattr(state, name), device)
+                         for name in LEVELS if getattr(state, name) is not None})
 
 
-def with_codebook(codec, meta):
-    """``codec`` with level w's codebook (``eps``) and Gumbel chain taken from
-    ``meta`` (a level meta of either package), so both packages code against
-    identical samples."""
-    w = codec.w
-    dev = w.eps.device
+# the dtypes the JAX package holds (and its snapshots store) a level in
+LEVEL_DTYPES = {"loc": np.float32, "log_scale": np.float32, "frozen_mask": np.float32,
+                "frozen_val": np.float32, "kl_beta": np.float32, "compressed": np.bool_,
+                "indices": np.int32}
+
+
+def level_arrays(ls) -> Dict[str, np.ndarray]:
+    """The port's ``LevelState`` -> numpy arrays named and typed as the JAX
+    package's (``LEVEL_DTYPES``)."""
+    fields = {"loc": ls.q.loc, "log_scale": ls.q.log_scale,
+              **{f: getattr(ls, f) for f in list(LEVEL_DTYPES)[2:]}}
+    return {f: t.detach().cpu().numpy().astype(LEVEL_DTYPES[f]) for f, t in fields.items()}
+
+
+def with_codebook(codec, meta, level: str = "w"):
+    """``codec`` with ``level``'s codebook (``eps``) and Gumbel chain taken
+    from ``meta`` (a level meta of either package), so both packages code
+    against identical samples."""
+    own = getattr(codec, level)
+    dev = own.eps.device
     eps = torch.tensor(np.asarray(meta.eps, np.float32), device=dev)
     gumbel = torch.tensor(np.asarray(meta.gumbel, np.float32), device=dev)
-    if eps.shape != w.eps.shape or gumbel.shape != w.gumbel.shape:
+    if eps.shape != own.eps.shape or gumbel.shape != own.gumbel.shape:
         raise ValueError(f"codebook {tuple(eps.shape)} / {tuple(gumbel.shape)} does not "
-                         f"match {tuple(w.eps.shape)} / {tuple(w.gumbel.shape)}")
-    return dataclasses.replace(codec, w=dataclasses.replace(w, eps=eps, gumbel=gumbel))
+                         f"match {tuple(own.eps.shape)} / {tuple(own.gumbel.shape)}")
+    return dataclasses.replace(codec, **{level: dataclasses.replace(own, eps=eps,
+                                                                    gumbel=gumbel)})

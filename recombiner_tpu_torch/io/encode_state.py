@@ -2,9 +2,10 @@
 ``recombiner_tpu/io/encode_state.py`` (STATE_VERSION 2), so that a snapshot
 written by either package loads in the other.
 
-One ``.npz``: per level ``{level}/loc``, ``{level}/log_scale`` and the five
-``_FIELDS``; the phase-1 Adam state as ``__opt__/{i}`` in optax's leaf
-order (``encoder.AdamState.leaves``); and a JSON ``__header__``. The JAX
+One ``.npz``: per level (w, and h and hh for a patch config)
+``{level}/loc``, ``{level}/log_scale`` and the five ``_FIELDS``; the
+phase-1 Adam state as ``__opt__/{i}`` in optax's leaf order
+(``encoder.AdamState.leaves``); and a JSON ``__header__``. The JAX
 package stores its threefry key as ``resume_key``; the port stores its
 ``torch.Generator`` state under a field of its own (``GENERATOR_FIELD``),
 which the JAX package does not read.
@@ -18,18 +19,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from recombiner_tpu_torch.coding.decoder import CodecState, LevelState
+from recombiner_tpu_torch.coding.decoder import LEVELS, CodecState, LevelState
 from recombiner_tpu_torch.device import DeviceLike, resolve_device
 from recombiner_tpu_torch.io.atomic import SnapshotRejected, atomic_savez
+from recombiner_tpu_torch.io.convert import level_arrays
 from recombiner_tpu_torch.models.gaussian import Gaussian
 
 STATE_VERSION = 2
 GENERATOR_FIELD = "torch_generator"
 
 _FIELDS = ("frozen_mask", "frozen_val", "kl_beta", "compressed", "indices")
-# the dtypes the JAX package writes (indices int32 as jax arrays hold them)
-_DTYPES = {"frozen_mask": np.float32, "frozen_val": np.float32, "kl_beta": np.float32,
-           "compressed": np.bool_, "indices": np.int32}
 
 
 class FingerprintMismatch(SnapshotRejected):
@@ -59,16 +58,10 @@ def save_encode_state(path: str, state: CodecState, *, extra: Optional[dict] = N
     """Write ``state`` (and ``opt_leaves``, the phase-1 Adam state's leaves)
     atomically, with ``extra`` merged into the header."""
     arrays = {}
-    levels = []
-    for name in ("w", "h", "hh"):
-        ls = getattr(state, name)
-        if ls is None:
-            continue
-        levels.append(name)
-        arrays[f"{name}/loc"] = ls.q.loc.detach().cpu().numpy().astype(np.float32)
-        arrays[f"{name}/log_scale"] = ls.q.log_scale.detach().cpu().numpy().astype(np.float32)
-        for f in _FIELDS:
-            arrays[f"{name}/{f}"] = getattr(ls, f).cpu().numpy().astype(_DTYPES[f])
+    levels = [name for name in LEVELS if state.level(name) is not None]
+    for name in levels:
+        for f, a in level_arrays(state.level(name)).items():
+            arrays[f"{name}/{f}"] = a
     for i, leaf in enumerate(opt_leaves or ()):
         arrays[f"__opt__/{i}"] = np.asarray(leaf)
     header = {
@@ -103,21 +96,20 @@ def load_encode_state_full(path: str, expect_fingerprint=None, device: DeviceLik
                 f"encode snapshot {path} was written under prior {snap_fp}, current prior "
                 f"accepts {list(accepted)}; refusing to resume (delete the snapshot or load "
                 "the matching prior)")
-        if "h" in header["levels"]:
-            raise NotImplementedError("patch configs are not ported yet (ROADMAP.md, port "
-                                      "queue: patch / kodak_mini)")
-
         def t(key, dtype=torch.float32):
             return torch.as_tensor(np.asarray(z[key]), device=dev).to(dtype)
 
-        w = LevelState(
-            q=Gaussian(loc=t("w/loc"), log_scale=t("w/log_scale")),
-            frozen_mask=t("w/frozen_mask"),
-            frozen_val=t("w/frozen_val"),
-            kl_beta=t("w/kl_beta"),
-            compressed=t("w/compressed", torch.bool),
-            indices=t("w/indices", torch.int64),
-        )
+        def level(name: str) -> LevelState:
+            return LevelState(
+                q=Gaussian(loc=t(f"{name}/loc"), log_scale=t(f"{name}/log_scale")),
+                frozen_mask=t(f"{name}/frozen_mask"),
+                frozen_val=t(f"{name}/frozen_val"),
+                kl_beta=t(f"{name}/kl_beta"),
+                compressed=t(f"{name}/compressed", torch.bool),
+                indices=t(f"{name}/indices", torch.int64),
+            )
+
+        state = CodecState(**{name: level(name) for name in header["levels"]})
         n_opt = int(header.get("n_opt_leaves", 0))
         opt_leaves = [np.asarray(z[f"__opt__/{i}"]) for i in range(n_opt)] if n_opt else None
-    return CodecState(w=w, h=None, hh=None), header, opt_leaves
+    return state, header, opt_leaves

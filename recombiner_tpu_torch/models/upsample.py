@@ -110,7 +110,7 @@ def _phased_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
     _, ext, pads = phase_kernel_matrix(k, (fh, fw), p)
     cout, cin = w.shape[:2]
     taps = w.permute(2, 3, 1, 0).reshape(k * k, cin * cout)  # (kh, kw) row-major
-    kp = _phase_matrix_on(k, (fh, fw), p, w.device) @ taps  # (ext^2 f^2, cin * cout)
+    kp = _phase_matrix_on(k, (fh, fw), p, w.device).to(taps.dtype) @ taps  # (ext^2 f^2, cin*cout)
     kp = kp.reshape(*ext, fh * fw, cin, cout).permute(4, 2, 3, 0, 1)
     kp = kp.reshape(cout * fh * fw, cin, *ext)
     y = F.conv2d(x, kp, b.repeat_interleave(fh * fw), padding=(pads[0][0], pads[1][0]))

@@ -29,6 +29,8 @@ from recombiner_tpu_torch.device import resolve_device
 from recombiner_tpu_torch.io import bitstream, checkpoint
 
 CIFAR_PRIOR = "docs/schedule_priors/PRIOR_rd_cifar_bitrate=2.npz"
+TINY_PATCH_PRIOR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                                "tiny_patch_prior.npz")
 TOL = dict(atol=3e-5, rtol=1e-5)
 
 
@@ -174,11 +176,17 @@ def test_artifact_round_trips_between_packages(tmp_path):
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
+    """A patch prior (it raised here before the patch slice) builds its three
+    levels on the CPU when asked for, and needs a card otherwise, as a
+    non-patch prior does."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    art = checkpoint.PriorArtifact(config=TINY_PATCH, kl_beta=0.0, w=None, h=None, hh=None,
-                                   A=[], up={})
-    with pytest.raises(NotImplementedError):
-        decoder.init_codec(art, 4, device="cpu")
+    art = checkpoint.load_prior_artifact(TINY_PATCH_PRIOR)
+    assert art.config == TINY_PATCH
+    codec, state = decoder.init_codec(art, 4, device="cpu")
+    assert codec.level_names == ("w", "h", "hh") and codec.device == torch.device("cpu")
+    assert [state.level(n).q.loc.shape[0] for n in codec.level_names] == [4, 2, 1]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decoder.init_codec(art, 4)
     jart = _tiny_artifact("threefry")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         decoder.init_codec(jart, 2)

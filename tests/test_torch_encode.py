@@ -287,10 +287,18 @@ def test_tiny_compress_decodes_in_both_packages(setup, tmp_path):
 
 
 def test_compress_raises_on_what_later_slices_port(setup):
+    """``remat=True`` raised here until the patch slice ported it; now it
+    runs, and recomputing the forward in the backward changes no number:
+    the indices and posteriors equal those of the run without it."""
     _, art, _, _, codec, X, Y = setup
     state = decoder.init_codec(art, R, device="cpu")[1]
-    with pytest.raises(NotImplementedError, match="remat"):
-        progressive.compress(codec, state, X, Y, art.config, torch.Generator(), remat=True)
+    res = [progressive.compress(codec, state, X, Y, art.config, torch.Generator().manual_seed(1),
+                                n_optimize_epochs=3, sample_size=S,
+                                finetune_overrides={"w": 1}, remat=remat)
+           for remat in (True, False)]
+    np.testing.assert_array_equal(res[0].indices["w"], res[1].indices["w"])
+    assert torch.equal(res[0].state.w.q.loc, res[1].state.w.q.loc)
+    assert torch.equal(res[0].state.w.q.log_scale, res[1].state.w.q.log_scale)
 
 
 def test_small_copies_match_jax():
@@ -331,9 +339,13 @@ def test_cli_compress_on_png_dir(tmp_path):
     y = decompress_cli.main(["--bitstream", str(out / "bitstream_test_id_0.rctb"),
                              "--prior_path", prior, "--save_dir", str(out), "--device", "cpu"])
     np.testing.assert_allclose(y, res.reconstruction, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="--remat"):
-        compress_cli.main(["--test_dir", str(images), "--test_idx", "0", "--prior_path", prior,
-                           "--save_dir", str(out), "--remat"])
+    # --remat runs (it raised before the patch slice) and changes no number
+    again = compress_cli.main(["--test_dir", str(images), "--test_idx", "0", "--prior_path",
+                               prior, "--save_dir", str(tmp_path / "remat"), "--device", "cpu",
+                               "--n_epochs", "5", "--finetune_epochs", "1", "--sample_size", "2",
+                               "--seed", "1", "--remat"])
+    np.testing.assert_array_equal(again.indices["w"], res.indices["w"])
+    np.testing.assert_array_equal(again.reconstruction, res.reconstruction)
     with pytest.raises(NotImplementedError, match="n_devices 2"):
         compress_cli.main(["--test_dir", str(images), "--test_idx", "0", "--prior_path", prior,
                            "--save_dir", str(out), "--n_devices", "2"])
@@ -427,7 +439,7 @@ def test_cli_takes_the_jax_clis_reference_invocations(extra):
 
 
 @pytest.mark.parametrize("extra,queue", [
-    (["--remat"], "remat"),
+    (["--precision", "scoped"], "precision modes"),
     (["--n_devices", "2"], "scale-out"),
     (["--precision", "default"], "precision modes"),
 ])
@@ -465,6 +477,7 @@ def png_dir(tmp_path_factory):
     ["--ft_lr", "4e-4"],
     ["--ft_lr_schedule", "cosine"],
     ["--schedule", "quality"],
+    ["--remat"],
 ])
 def test_cli_runs_each_value_this_slice_ports(extra, png_dir, tmp_path, setup):
     """Each flag value that the adaptive/quality/resume slice ports parses

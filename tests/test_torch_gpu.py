@@ -21,7 +21,7 @@ import torch
 
 from recombiner_tpu_torch.coding.decoder import decode, init_codec
 from recombiner_tpu_torch.coding.encoder import encode_step
-from recombiner_tpu_torch.config import CIFAR, TINY
+from recombiner_tpu_torch.config import CIFAR, KODAK, TINY
 from recombiner_tpu_torch.device import exact_f32
 from recombiner_tpu_torch.models.gaussian import Gaussian
 from recombiner_tpu_torch.models.inr import inr_forward
@@ -202,6 +202,64 @@ def test_encode_step_on_card_matches_cpu(cuda):
     assert torch.equal(card.indices.cpu(), cpu.indices)
     assert torch.equal(card.compressed.cpu(), cpu.compressed)
     torch.testing.assert_close(card.frozen_val.cpu(), cpu.frozen_val, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("B", [96, 3])
+def test_forward_kernel_at_kodak_pixel_count(cuda, B):
+    """A Kodak patch row has P = 4,096 pixels: decode launches B = 96 rows
+    (one image), each sample's pixels spread over four blocks."""
+    x, theta = _inputs(KODAK, B, KODAK.n_pixels, cuda)
+    got = fused_inr.siren_forward(x, theta, KODAK.net_dims, KODAK.w0, samples_per_block=1)
+    want = fused_inr.siren_forward_reference(x, theta, KODAK.net_dims, KODAK.w0)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("B", [480, 2])
+def test_backward_kernel_at_kodak_pixel_count(cuda, B):
+    """An S = 5 Kodak epoch launches B = 480 samples of P = 4,096 pixels, one
+    block each looping over sixteen pixel tiles: dW's fixed-order sums and
+    the tile pipeline at that length; two launches bitwise equal."""
+    x, theta = _inputs(KODAK, B, KODAK.n_pixels, cuda)
+    dy = torch.randn(B, KODAK.n_pixels, KODAK.output_dim, device=cuda)
+    dx, dtheta = fused_inr.siren_backward(x, theta, dy, KODAK.net_dims, KODAK.w0)
+    again = fused_inr.siren_backward(x, theta, dy, KODAK.net_dims, KODAK.w0)
+    assert torch.equal(dx, again[0]) and torch.equal(dtheta, again[1])
+    want_dx, want_dtheta = fused_inr.siren_backward_reference(x, theta, dy, KODAK.net_dims,
+                                                              KODAK.w0)
+    _assert_close_of_max(dx, want_dx, "dx")
+    _assert_close_of_max(dtheta, want_dtheta, "dtheta")
+
+
+def test_patch_encode_steps_on_card_match_cpu(cuda):
+    """Encode steps at levels hh, h and w of the TINY_PATCH fixture prior (8
+    patch rows, rows mixed across patches per column) from one perturbed
+    state: on the card the indices and coded masks equal the CPU's and the
+    frozen values agree to f32 rounding."""
+    import os
+
+    from recombiner_tpu_torch.io.checkpoint import load_prior_artifact
+
+    art = load_prior_artifact(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "fixtures", "tiny_patch_prior.npz"))
+    levels = {}
+    for dev in ("cuda", "cpu"):
+        codec, state = init_codec(art, 8, device=dev)
+        g = torch.Generator().manual_seed(5)
+        for name in ("w", "h", "hh"):
+            ls = state.level(name)
+            loc = ls.q.loc + 0.01 * torch.randn(ls.q.loc.shape, generator=g).to(dev)
+            state = state.replace_level(name, dataclasses.replace(
+                ls, q=Gaussian(loc, ls.q.log_scale)))
+        for name in ("hh", "h", "w"):
+            for _ in range(2):
+                state = encode_step(codec, state, name)
+        levels[dev] = state
+    for name in ("w", "h", "hh"):
+        card, cpu = levels["cuda"].level(name), levels["cpu"].level(name)
+        assert torch.equal(card.indices.cpu(), cpu.indices), name
+        assert torch.equal(card.compressed.cpu(), cpu.compressed), name
+        assert torch.equal(card.frozen_mask.cpu(), cpu.frozen_mask), name
+        torch.testing.assert_close(card.frozen_val.cpu(), cpu.frozen_val, rtol=1e-6, atol=1e-7)
 
 
 def _tiny_artifact(seed=3):

@@ -16,7 +16,8 @@ BLOCKED = ("jax", "flax", "optax", "tqdm", "recombiner_tpu")
 # without them
 ENCODE_MODULES = ("coding.encoder", "coding.progressive", "coding.gumbel", "cli.compress",
                   "data.pipeline", "data.image", "data.load_data", "metrics", "io.atomic",
-                  "io.encode_state", "io.checkpoint", "models.upsample")
+                  "io.encode_state", "io.checkpoint", "models.upsample", "models.mappings",
+                  "utils.memory")
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|tqdm|recombiner_tpu)\b", re.M)
 
 

@@ -21,7 +21,7 @@ from recombiner_tpu.models.mappings import lpe_to_pe as jax_lpe_to_pe
 from recombiner_tpu.models.upsample import apply_upsample as jax_apply_upsample
 from recombiner_tpu.models.upsample import init_upsample_params
 from recombiner_tpu.ops.phase_upsample import apply_upsample_phased as jax_apply_upsample_phased
-from recombiner_tpu_torch.config import TINY_PATCH, get_config
+from recombiner_tpu_torch.config import TINY_AUDIO, get_config
 from recombiner_tpu_torch.io.convert import torch_params_from_artifact
 from recombiner_tpu_torch.models.mappings import lpe_to_pe
 from recombiner_tpu.ops.phase_upsample import phase_kernel_matrix as jax_phase_kernel_matrix
@@ -91,5 +91,6 @@ def test_not_ported_geometries_raise():
     for stack in (apply_upsample, apply_upsample_phased):
         with pytest.raises(NotImplementedError):
             stack({}, torch.zeros(1, 4, 32), 1, (4, 2, 2), (2, 1, 1))
+    # the 1-D patch path stitches its canvas, then meets the 2-D-only stack
     with pytest.raises(NotImplementedError):
-        lpe_to_pe({}, torch.zeros(4, 1, 1, 1, 128), TINY_PATCH)
+        lpe_to_pe({}, torch.zeros(4, 1, 4, 128), TINY_AUDIO)
