@@ -3,7 +3,9 @@
 on the reference, adaptive and quality schedules with a crash and a
 resume, at R = 500; then Kodak (the patch path: levels w, h, hh, the
 cross-patch permutations and the stitched conv canvas) at its full
-geometry: decode, encode, remat, and a crash and a resume.
+geometry: decode, encode, remat, and a crash and a resume; then audio,
+video and protein at theirs (the 1-D and 3-D conv stacks): decode,
+encode and the media export, and for video remat and a resume.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -70,23 +72,36 @@ caught and passed over but the crashes phase 12 simulates):
    its plain version and an f64 evaluation, timed, with its bound;
 14. Kodak decode: random indices for all three levels (96 / 6 / 1 rows),
    decoded on the card and on the CPU (all 96 rows, so the stitch is
-   compared whole); decode wall, device time and peak memory;
+   compared whole), both held to an f64 decode; decode wall, device time
+   and peak memory;
 15. Kodak encode: ``compress`` on the reference schedule on one smooth
-   512 x 768 image, cut in depth (KODAK_* below), every group of hh, h and
+   512 x 768 image, cut in depth (CUT_* below), every group of hh, h and
    w coded, the launch counts read around it, the bitstream decoded back
    equal; epoch_s at S = 5, code_step_s per level, peak memory, an epoch
    under the profiler, and epoch_s under each conv stack;
-16. Kodak remat: KODAK_REMAT_EPOCHS epochs from one state and generator
+16. Kodak remat: REMAT_EPOCHS epochs from one state and generator
    state with remat off, on, on, off: off twice and on against off must be
    bitwise equal; epoch_s and peak memory of each;
 17. Kodak resume: the encode crashed after its first snapshot at level h,
    resumed through ``resume_from``; indices and posteriors must equal the
-   uninterrupted encode's bit for bit.
+   uninterrupted encode's bit for bit;
+18. the same phases (kernels, decode, encode) for AUDIO (one 3 s
+   speech-like clip: 60 / 15 / 1 rows, P = 800, widths 32-32-32-32-1, the
+   1-D stack on a 3,000-long canvas), VIDEO (one smooth 24 x 128 x 128 clip:
+   64 / 4 / 1 rows, P = 6,144, widths 34-32-32-32-3, the 3-D stack with its
+   (6, 4, 4) first factor) and PROTEIN (1,000 backbones, one level, P =
+   96), each on a random prior of its shapes from --seed and each followed
+   by its export: ``cli.decompress --export_media`` on the card on the
+   decode's indices, equal to the decode, and every WAV, NPZ and PDB file
+   read back; video also with its phase stack held against the plain one
+   on the card, remat off/on/on/off (the epochs repeat bit for bit) and a
+   crash at level h resumed.
 
 Cuts (depth only; every CIFAR phase runs CIFAR's full widths, R = 500
 rows, all 125 groups coded): ENCODE_* for the reference schedule; ADAPTIVE
 and QUALITY for the presets (``recombiner_tpu_torch/cli/compress.py``);
-KODAK_* for Kodak (full widths and geometry, every group coded).
+CUT_* for Kodak, audio, video and protein (full widths and geometry,
+every group of every level coded).
 
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -109,17 +124,24 @@ import time
 import numpy as np
 import torch
 
+from recombiner_tpu_torch.cli import decompress as decompress_cli
 from recombiner_tpu_torch.cli.compress import resume_from
 from recombiner_tpu_torch.coding import encoder, progressive
 from recombiner_tpu_torch.coding import decoder
 from recombiner_tpu_torch.coding.decoder import decode, init_codec
-from recombiner_tpu_torch.config import CIFAR, KODAK
+from recombiner_tpu_torch.config import AUDIO, CIFAR, KODAK, PROTEIN, VIDEO
 from recombiner_tpu_torch.coords import grid_fourier_features
-from recombiner_tpu_torch.data.pipeline import points_from_datum
+from recombiner_tpu_torch.data import export, protein, synthetic
+from recombiner_tpu_torch.data.pipeline import points_from_data
 from recombiner_tpu_torch.device import exact_f32
 from recombiner_tpu_torch.io import encode_state
 from recombiner_tpu_torch.io.bitstream import read_bitstream, write_bitstream
-from recombiner_tpu_torch.io.checkpoint import LevelArtifact, PriorArtifact, prior_fingerprint
+from recombiner_tpu_torch.io.checkpoint import (
+    LevelArtifact,
+    PriorArtifact,
+    prior_fingerprint,
+    save_prior_artifact,
+)
 from recombiner_tpu_torch.metrics import metric
 from recombiner_tpu_torch.models import mappings
 from recombiner_tpu_torch.models.gaussian import Gaussian
@@ -261,14 +283,11 @@ def make_cifar_artifact(seed: int) -> PriorArtifact:
     return make_artifact(CIFAR, seed)
 
 
-def make_kodak_artifact(seed: int) -> PriorArtifact:
-    """A KODAK prior (levels w, h, hh of 5,315, 3,267 and 3,267 coded
-    parameters) with random values from ``seed``, as ``make_cifar_artifact``
-    draws them: no trained Kodak prior is in the repo."""
-    return make_artifact(KODAK, seed)
-
-
 def make_artifact(cfg, seed: int) -> PriorArtifact:
+    """A prior of ``cfg``'s shapes (levels w, and h and hh for a patch
+    config; (*k, cin, cout) conv kernels of its data_dim) with random values
+    from ``seed``, as ``make_cifar_artifact`` draws them: no trained Kodak,
+    audio or video prior of the full geometry is read."""
     rng = np.random.default_rng(seed)
     level = random_level(rng, cfg.n_coded_params, cfg.bits_per_group)
     upper = {}
@@ -280,9 +299,10 @@ def make_artifact(cfg, seed: int) -> PriorArtifact:
              (cfg.upsample_hidden, cfg.upsample_out)]
     up = {}
     for i, ((cin, cout), k) in enumerate(zip(chans, (5, 3, 3))):
-        bound = 1.0 / np.sqrt(cin * k * k)
+        bound = 1.0 / np.sqrt(cin * k**cfg.data_dim)
         up[f"conv{i}"] = {
-            "w": rng.uniform(-bound, bound, (k, k, cin, cout)).astype(np.float32),
+            "w": rng.uniform(-bound, bound,
+                             (k,) * cfg.data_dim + (cin, cout)).astype(np.float32),
             "b": rng.uniform(-bound, bound, cout).astype(np.float32),
         }
     return PriorArtifact(config=cfg, kl_beta=1e-4, w=level, h=upper.get("h"),
@@ -526,132 +546,233 @@ def same_posteriors(a, b) -> bool:
                for f in ("loc", "log_scale"))
 
 
-# The Kodak encode is cut in depth only: phase 1 30,000 -> 30 epochs, and
-# every finetune (w: max(30000 // n_groups, 50) epochs, h and hh:
-# max(15000 // n_groups, 20)) -> 1, so that every group of every level is
-# coded inside the time limit.
-KODAK_PHASE1_EPOCHS = 30
-KODAK_FINETUNES = {"w": 1, "h": 1, "hh": 1}
-KODAK_REMAT_EPOCHS = 5
-KODAK_SAVE_EVERY = 10
+# The patch encodes (Kodak, audio, video) and protein's are cut in depth
+# only: phase 1 30,000 -> 30 epochs, and every finetune (w: max(30000 //
+# n_groups, 50) epochs, h and hh: max(15000 // n_groups, 20)) -> 1, so that
+# every group of every level is coded inside the time limit.
+CUT_PHASE1_EPOCHS = 30
+# exported media read back against the decode, (atol, rtol): 16-bit PCM;
+# coordinates printed to 1e-3 A (half of it, with rtol 1e-7 for their f32
+# rounding); NPZ exact
+READ_BACK_TOL = {"wav": (1 / 32767, 0.0), "pdb": (5e-4, 1e-7), "npz": (0.0, 0.0)}
+# words in the names of the conv stack's cuDNN kernels (convolutions, their
+# data gradients, cuDNN's layout transforms), not in cuBLAS's GEMMs
+CONV_KERNEL_WORDS = ("conv", "dgrad", "fprop", "wgrad", "implicit", "fft", "cudnn")
+CUT_FINETUNE_EPOCHS = 1
+REMAT_EPOCHS = 5
+SAVE_EVERY = 10
 
 
-def kodak_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
-    """The phases at KODAK's full geometry (levels w, h, hh of 96, 6 and 1
-    rows, P = 4,096, S = 5) with a random prior of KODAK's shapes from
-    ``seed`` and one smooth 512 x 768 image: both kernels at P = 4,096,
-    decode, encode, remat, and a crash at level h resumed. Appends the
-    kernels' disagreements to ``errs`` and ``bwd_errs``; returns the
-    numbers the kernels line and the summary print."""
-    cfg = KODAK
+def kodak_data(seed: int):
+    """One smooth 512 x 768 image, as cli/compress encodes it: 96 patch rows."""
+    hw = tuple(n * p for n, p in zip(KODAK.patch_nums, KODAK.pixel_sizes))
+    return [smooth_images(1, seed, hw)[0]]
+
+
+def audio_data(seed: int):
+    """One 3 s speech-like clip at 16 kHz (48,000 samples): 60 patch rows."""
+    return [synthetic.speech_like_clip(np.random.default_rng(seed), 48000)]
+
+
+def video_data(seed: int):
+    """One smooth 24 x 128 x 128 x 3 clip: 64 patch rows."""
+    return [synthetic.smooth_signal(np.random.default_rng(seed), (24, 128, 128), 3)]
+
+
+def protein_data(seed: int):
+    """A test batch of 1,000 C-alpha backbones of 96 residues."""
+    rng = np.random.default_rng(seed)
+    return [synthetic.protein_backbone(rng, 96) for _ in range(1000)]
+
+
+def kernel_checks(art, B: int, S: int, gen, card: str, errs: list, bwd_errs: list,
+                  label: str):
+    """siren_fwd at decode's B and siren_bwd at the encode's B * S, at the
+    config's P and widths, each held against its plain version and an f64
+    evaluation (two siren_bwd launches bitwise equal), timed, with its
+    bound. Appends the disagreements to ``errs`` and ``bwd_errs``; returns
+    the two kernels' entries."""
+    cfg = art.config
     dims, P = cfg.net_dims, cfg.n_pixels
-    # one image, as cli/compress encodes it: 8 x 12 patches of 64 x 64
-    R, S = cfg.patches_per_datapoint, SAMPLE_SIZE
-    hw = tuple(n * p for n, p in zip(cfg.patch_nums, cfg.pixel_sizes))
+    x, theta = kernel_inputs(art, B, P, gen)
+    ref = fused_inr.siren_forward_reference(x, theta, dims, cfg.w0)
+    got = fused_inr.siren_forward(x, theta, dims, cfg.w0, samples_per_block=1)
+    torch.cuda.synchronize()
+    errs.append(max_err(got, ref))
+    gap = f64_gaps(got, ref, fused_inr.siren_forward_reference(x.double(), theta.double(),
+                                                               dims, cfg.w0))
+    fwd = {"shape": [B, P], "widths": list(dims), "max_abs_err": errs[-1],
+           "ms": cuda_ms(lambda: fused_inr.siren_forward(x, theta, dims, cfg.w0, 1), 50),
+           "plain_ms": cuda_ms(
+               lambda: fused_inr.siren_forward_reference(x, theta, dims, cfg.w0), 20)}
+    flops, nbytes = fwd_work(x, theta, dims)
+    fwd["bound_ms"], fwd["bound_by"], route, _ = bounds(flops, nbytes)
+    print(f"{label} siren_fwd B={B} P={P} widths {list(dims)}: max abs diff {errs[-1]:.3e} "
+          f"(atol {ATOL}, rtol {RTOL}); vs an f64 evaluation {gap[0]:.3e} kernel, {gap[1]:.3e} "
+          f"plain version; {fwd['ms']:.4f} ms, plain version {fwd['plain_ms']:.4f} ms, bound "
+          f"{fwd['bound_ms']:.4f} ms by {fwd['bound_by']} ({flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB; operations term {route}) [{card}]")
+    del x, theta, ref, got
+    B = B * S
+    xb, thetab = kernel_inputs(art, B, P, gen)
+    dyb = torch.randn(B, P, cfg.output_dim, generator=gen, device="cuda")
+    got = fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0)
+    again = fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError(f"two {label} siren_bwd launches at P={P} differ")
+    refs = fused_inr.siren_backward_reference(xb, thetab, dyb, dims, cfg.w0)
+    e = (max_err_of_max(got[0], refs[0], "dx"), max_err_of_max(got[1], refs[1], "dtheta"))
+    bwd_errs += e
+    ref64 = fused_inr.siren_backward_reference(xb.double(), thetab.double(), dyb.double(),
+                                               dims, cfg.w0)
+    gaps = [f64_gaps(k, r, r64) for k, r, r64 in zip(got, refs, ref64)]
+    del ref64, refs, again
+    bwd = {"shape": [B, P], "widths": list(dims), "max_abs_err": max(e),
+           "ms": cuda_ms(lambda: fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0), 10),
+           "plain_ms": cuda_ms(lambda: fused_inr.siren_backward_reference(
+               xb, thetab, dyb, dims, cfg.w0), 3, 1)}
+    flops, nbytes = bwd_work(xb, thetab, dyb, dims)
+    bwd["bound_ms"], bwd["bound_by"], route, _ = bounds(flops, nbytes)
+    print(f"{label} siren_bwd B={B} P={P} widths {list(dims)}: max abs diff dx {e[0]:.3e}, "
+          f"dtheta {e[1]:.3e} (tolerance {BWD_OF_MAX} of the largest entry); two launches "
+          f"bitwise equal; vs an f64 evaluation dx {gaps[0][0]:.3e} kernel, {gaps[0][1]:.3e} "
+          f"plain, dtheta {gaps[1][0]:.3e} kernel, {gaps[1][1]:.3e} plain; {bwd['ms']:.4f} ms, "
+          f"plain version {bwd['plain_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms by "
+          f"{bwd['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; operations term "
+          f"{route}) [{card}]")
+    return fwd, bwd
+
+
+def export_checks(art, idx, y: torch.Tensor, label: str) -> dict:
+    """``cli.decompress --export_media`` on the card on a bitstream of
+    ``idx``: its decode must equal ``y`` (the card's decode of the same
+    indices) exactly, and each file must read back within ``READ_BACK_TOL``
+    of it: a WAV (the decode clipped to [0, 1]), a PDB's coordinates, an
+    NPZ."""
+    cfg = art.config
+    with tempfile.TemporaryDirectory() as tmp:
+        prior = os.path.join(tmp, "prior.npz")
+        save_prior_artifact(prior, art)
+        path = os.path.join(tmp, "bitstream_test_id_0.rctb")
+        write_bitstream(path, idx, config_name=cfg.name, codebook_seed=art.codebook_seed,
+                        codebook_kind=art.codebook_kind, bits_per_group=cfg.bits_per_group)
+        out = os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        y_cli = decompress_cli.main(["--bitstream", path, "--prior_path", prior, "--save_dir",
+                                     out, "--export_media"])
+        cli_s = time.perf_counter() - t0
+        if not np.array_equal(y_cli, y.cpu().numpy()):
+            raise AssertionError(f"{label}: cli.decompress on the card differs from decode")
+        data = export.reassemble(y_cli, cfg)
+        files = sorted((f for f in os.listdir(out) if not f.endswith(".npy")),
+                       key=lambda f: int(f.rsplit("_", 1)[1].split(".")[0]))
+        kind = files[0].rsplit(".", 1)[1]
+        if len(files) != len(data) or kind not in READ_BACK_TOL:
+            raise AssertionError(f"{label}: {len(files)} media files ({kind}) for {len(data)} "
+                                 "datapoints")
+        atol, rtol = READ_BACK_TOL[kind]
+        worst = 0.0
+        for f, datum in zip(files, data):
+            p = os.path.join(out, f)
+            if kind == "wav":
+                got, want = export.read_wav(p), np.clip(datum[:, 0], 0, 1)
+            elif kind == "pdb":
+                got, want = protein.parse_pdb_ca(p), datum * protein.SCALE
+            else:
+                with np.load(p) as z:
+                    got, want = z["data"], datum
+            if got.shape != want.shape or (np.abs(got - want) > atol + rtol * np.abs(want)).any():
+                raise AssertionError(f"{label}: {f} reads back {np.abs(got - want).max():.3e} "
+                                     f"from the decode (atol {atol:.3e}, rtol {rtol})")
+            worst = max(worst, float(np.abs(got - want).max()))
+    print(f"{label} export: cli.decompress --export_media on the card ({cli_s:.2f} s with "
+          f"init_codec): decode equal to the card's; {len(files)} {kind} files read back within "
+          f"{worst:.3e} of it (atol {atol:.3e}, rtol {rtol})")
+    return {"files": len(files), "kind": kind, "max_read_back_err": worst, "cli_s": cli_s}
+
+
+def config_phases(cfg, data, seed: int, card: str, errs: list, bwd_errs: list, label: str,
+                  small_bwd: bool = False, remat: bool = False, resume: bool = False,
+                  stack_check: bool = False, media: bool = False) -> dict:
+    """The phases of one configuration at its full geometry (S = 5) on a
+    random prior of its shapes from ``seed`` (``make_artifact``: no trained
+    prior is read) and the datapoints ``data``: both kernels at its shapes,
+    decode, an encode coding every group of every level, epoch_s under each
+    conv stack; with ``small_bwd`` siren_bwd at B = 20; with ``stack_check``
+    the phase stack held against the plain one on the card; with ``remat``
+    epochs with remat off, on, on, off (off twice: the epochs repeat bit for
+    bit); with ``resume`` a crash at the first level-h snapshot resumed;
+    with ``media`` the export. Appends the kernels' disagreements to
+    ``errs`` and ``bwd_errs``; returns the numbers the kernels line and the
+    summary print."""
+    S = SAMPLE_SIZE
+    X_np, Y_np = points_from_data(data, cfg)
+    R = X_np.shape[0]
     out = {"rows": R}
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     t0 = time.perf_counter()
-    art = make_kodak_artifact(seed)
-    print(f"Kodak prior from seed {seed}: "
+    art = make_artifact(cfg, seed)
+    print(f"{label} prior from seed {seed}: "
           + ", ".join(f"{n} D={getattr(art, n).grouping.n_params} "
-                      f"{getattr(art, n).grouping.n_groups} groups" for n in ("w", "h", "hh"))
+                      f"{getattr(art, n).grouping.n_groups} groups" for n in ("w", "h", "hh")
+                      if getattr(art, n) is not None)
           + f" ({time.perf_counter() - t0:.2f} s)")
 
-    with phase("Kodak kernels"), exact_f32():
-        x, theta = kernel_inputs(art, R, P, gen)
-        ref = fused_inr.siren_forward_reference(x, theta, dims, cfg.w0)
-        got = fused_inr.siren_forward(x, theta, dims, cfg.w0, samples_per_block=1)
-        torch.cuda.synchronize()
-        errs.append(max_err(got, ref))
-        gap = f64_gaps(got, ref, fused_inr.siren_forward_reference(x.double(), theta.double(),
-                                                                   dims, cfg.w0))
-        fwd = {"shape": [R, P], "max_abs_err": errs[-1],
-               "ms": cuda_ms(lambda: fused_inr.siren_forward(x, theta, dims, cfg.w0, 1), 50),
-               "plain_ms": cuda_ms(
-                   lambda: fused_inr.siren_forward_reference(x, theta, dims, cfg.w0), 20)}
-        flops, nbytes = fwd_work(x, theta, dims)
-        fwd["bound_ms"], fwd["bound_by"], route, _ = bounds(flops, nbytes)
-        print(f"siren_fwd B={R} P={P}: max abs diff {errs[-1]:.3e} (atol {ATOL}, rtol {RTOL}); "
-              f"vs an f64 evaluation {gap[0]:.3e} kernel, {gap[1]:.3e} plain version; "
-              f"{fwd['ms']:.4f} ms, plain version {fwd['plain_ms']:.4f} ms, bound "
-              f"{fwd['bound_ms']:.4f} ms by {fwd['bound_by']} ({flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB; operations term {route}) [{card}]")
-        del x, theta, ref, got
-        B = R * S
-        xb, thetab = kernel_inputs(art, B, P, gen)
-        dyb = torch.randn(B, P, cfg.output_dim, generator=gen, device="cuda")
-        got = fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0)
-        again = fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
-            raise AssertionError("two siren_bwd launches at P=4096 differ")
-        refs = fused_inr.siren_backward_reference(xb, thetab, dyb, dims, cfg.w0)
-        e = (max_err_of_max(got[0], refs[0], "dx"), max_err_of_max(got[1], refs[1], "dtheta"))
-        bwd_errs += e
-        ref64 = fused_inr.siren_backward_reference(xb.double(), thetab.double(), dyb.double(),
-                                                   dims, cfg.w0)
-        gaps = [f64_gaps(k, r, r64) for k, r, r64 in zip(got, refs, ref64)]
-        del ref64, refs, again
-        bwd = {"shape": [B, P], "max_abs_err": max(e),
-               "ms": cuda_ms(lambda: fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0), 10),
-               "plain_ms": cuda_ms(lambda: fused_inr.siren_backward_reference(
-                   xb, thetab, dyb, dims, cfg.w0), 3, 1)}
-        flops, nbytes = bwd_work(xb, thetab, dyb, dims)
-        bwd["bound_ms"], bwd["bound_by"], route, _ = bounds(flops, nbytes)
-        print(f"siren_bwd B={B} P={P}: max abs diff dx {e[0]:.3e}, dtheta {e[1]:.3e} (tolerance "
-              f"{BWD_OF_MAX} of the largest entry); two launches bitwise equal; vs an f64 "
-              f"evaluation dx {gaps[0][0]:.3e} kernel, {gaps[0][1]:.3e} plain, dtheta "
-              f"{gaps[1][0]:.3e} kernel, {gaps[1][1]:.3e} plain; {bwd['ms']:.4f} ms, plain "
-              f"version {bwd['plain_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms by "
-              f"{bwd['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; operations "
-              f"term {route}) [{card}]")
-        del xb, thetab, dyb, got
-        # kodak_mini's one image at S = 5 is 20 one-sample blocks on 132 SMs
-        xs, ts = kernel_inputs(art, 20, 1024, gen)
-        dys = torch.randn(20, 1024, cfg.output_dim, generator=gen, device="cuda")
-        small_ms = cuda_ms(lambda: fused_inr.siren_backward(xs, ts, dys, dims, cfg.w0), 20)
-        print(f"siren_bwd at B=20 P=1024 (kodak_mini's one image at S=5): {small_ms:.4f} ms, "
-              f"{1e6 * small_ms / (20 * 1024):.3f} ns per sample-pixel against "
-              f"{1e6 * bwd['ms'] / (B * P):.3f} at B={B} P={P} [{card}]")
-        bwd["small_ms"] = small_ms
-        out["siren_fwd"], out["siren_bwd"] = fwd, bwd
+    with phase(f"{label} kernels"), exact_f32():
+        out["siren_fwd"], out["siren_bwd"] = kernel_checks(art, R, S, gen, card, errs,
+                                                           bwd_errs, label)
+        if small_bwd:
+            # kodak_mini's one image at S = 5 is 20 one-sample blocks on 132 SMs
+            bwd = out["siren_bwd"]
+            xs, ts = kernel_inputs(art, 20, 1024, gen)
+            dys = torch.randn(20, 1024, cfg.output_dim, generator=gen, device="cuda")
+            small_ms = cuda_ms(lambda: fused_inr.siren_backward(xs, ts, dys, cfg.net_dims,
+                                                                cfg.w0), 20)
+            print(f"siren_bwd at B=20 P=1024 (kodak_mini's one image at S=5): {small_ms:.4f} ms, "
+                  f"{1e6 * small_ms / (20 * 1024):.3f} ns per sample-pixel against "
+                  f"{1e6 * bwd['ms'] / (R * S * cfg.n_pixels):.3f} at B={R * S} "
+                  f"P={cfg.n_pixels} [{card}]")
+            bwd["small_ms"] = small_ms
 
-    with phase("Kodak decode"):
-        t0 = time.perf_counter()
-        decoder.patch_permutations(R, cfg.n_coded_params)
-        perm_s = time.perf_counter() - t0
+    with phase(f"{label} decode"):
+        perm_s = 0.0
+        if cfg.patch:
+            t0 = time.perf_counter()
+            decoder.patch_permutations(R, cfg.n_coded_params)
+            perm_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         codec, state0 = init_codec(art, R)
         print(f"init_codec R={R}: {time.perf_counter() - t0:.2f} s on the host (level w's "
-              f"cross-patch permutations {R} x {cfg.n_coded_params}: {perm_s:.3f} s; three "
-              "2^16-sample codebooks)")
+              f"cross-patch permutations {R} x {cfg.n_coded_params}: {perm_s:.3f} s; "
+              f"{len(codec.level_names)} 2^16-sample codebooks)")
         rows = {n: state0.level(n).q.loc.shape[0] for n in codec.level_names}
         rng = np.random.default_rng(seed)
         idx = {n: rng.integers(0, 2**cfg.bits_per_group, (rows[n], codec.meta(n).n_groups))
                for n in codec.level_names}
-        img = smooth_images(1, seed, hw)[0]
-        X_np, Y_np = points_from_datum(img, cfg)
         X, Y = torch.from_numpy(X_np).cuda(), torch.from_numpy(Y_np).cuda()
         zero_launches()
         y = decode(codec, idx, X, cfg)
         torch.cuda.synchronize()
         launched_dec = dict(fused_inr.launches)
-        print(f"kernel launches in Kodak decode: {launched_dec}; rows per level {rows}")
+        print(f"kernel launches in {label} decode: {launched_dec}; rows per level {rows}")
         if launched_dec["siren_fwd"] < 1:
-            raise AssertionError("Kodak decode did not go through the siren_fwd kernel")
-        if y.shape != (R, P, cfg.output_dim) or not torch.isfinite(y).all():
-            raise AssertionError(f"Kodak decode output: shape {tuple(y.shape)}")
+            raise AssertionError(f"{label} decode did not go through the siren_fwd kernel")
+        if y.shape != (R, cfg.n_pixels, cfg.output_dim) or not torch.isfinite(y).all():
+            raise AssertionError(f"{label} decode output: shape {tuple(y.shape)}")
         y_cpu = decode(init_codec(art, R, device="cpu")[0], idx, X_np, cfg)
         y64 = decode_f64(art, idx, X_np, cfg)
         card_gap = (y.cpu().double() - y64).abs().max().item()
         cpu_gap = (y_cpu.double() - y64).abs().max().item()
-        print(f"Kodak decode, all {R} rows (the whole stitched image): card vs CPU max abs diff "
-              f"{(y.cpu() - y_cpu).abs().max().item():.3e}; vs an f64 evaluation {card_gap:.3e} "
-              f"card, {cpu_gap:.3e} CPU (tolerance: the card at most {DECODE_F64_RATIO} times "
-              f"the CPU's gap); output range [{y64.min().item():.4f}, {y64.max().item():.4f}]")
+        print(f"{label} decode, all {R} rows{' (the whole stitched datapoint)' if cfg.patch else ''}"
+              f": card vs CPU max abs diff {(y.cpu() - y_cpu).abs().max().item():.3e}; vs an f64 "
+              f"evaluation {card_gap:.3e} card, {cpu_gap:.3e} CPU (tolerance: the card at most "
+              f"{DECODE_F64_RATIO} times the CPU's gap); output range [{y64.min().item():.4f}, "
+              f"{y64.max().item():.4f}]")
         if card_gap > DECODE_F64_RATIO * cpu_gap:
-            raise AssertionError("Kodak decode on the card is further from the f64 evaluation "
-                                 "than the CPU's f32 decode allows")
+            raise AssertionError(f"{label} decode on the card is further from the f64 "
+                                 "evaluation than the CPU's f32 decode allows")
+        del y_cpu, y64
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         dec_s = wall_s(lambda: decode(codec, idx, X, cfg), 5)
@@ -659,20 +780,47 @@ def kodak_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
         busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: decode(codec, idx, X, cfg), 5)
         out["decode"] = {"wall_ms": 1e3 * dec_s, "device_ms": busy_us / 5e3,
                          "idle": 1 - busy_us / wall_us, "peak_mib": dec_peak / 2**20}
-        print(f"Kodak decode R={R}: wall {1e3 * dec_s:.3f} ms (mean of 5 after a warm call), "
+        print(f"{label} decode R={R}: wall {1e3 * dec_s:.3f} ms (mean of 5 after a warm call), "
               f"device time {busy_us / 5e3:.3f} ms per decode under the profiler in "
               f"{wall_us / 5e3:.3f} ms of its wall, idle share {1 - busy_us / wall_us:.4f}; "
               f"peak device memory {dec_peak / 2**20:.1f} MiB [{card}]")
         for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
             print(f"  {us / 5e3:8.4f} ms/decode {100 * us / busy_us:5.1f}%  {name[:100]}")
 
+    if media:
+        with phase(f"{label} export"):
+            out["export"] = export_checks(art, idx, y, label)
+
+    finetunes = {n: CUT_FINETUNE_EPOCHS for n in codec.level_names}
+
     def compress(state, generator_seed=seed, **kw):
         return progressive.compress(codec, state, X, Y, cfg,
                                     torch.Generator(device="cuda").manual_seed(generator_seed),
-                                    n_optimize_epochs=KODAK_PHASE1_EPOCHS, sample_size=S,
-                                    finetune_overrides=KODAK_FINETUNES, **kw)
+                                    n_optimize_epochs=CUT_PHASE1_EPOCHS, sample_size=S,
+                                    finetune_overrides=finetunes, **kw)
 
-    with phase("Kodak encode"):
+    def epochs(n, remat=False):
+        return encoder.optimize(codec, state0, X, Y, cfg, gen, n_epochs=n, sample_size=S,
+                                remat=remat)
+
+    if stack_check:
+        with phase(f"{label} conv stacks"), exact_f32():
+            lpe = torch.randn(R, S, *cfg.lpe_spatial, cfg.latent_dim, generator=gen,
+                              device="cuda")
+            with stack(apply_upsample_phased):
+                phase_pe = mappings.lpe_to_pe(codec.up, lpe, cfg)
+            with stack(apply_upsample):
+                plain_pe = mappings.lpe_to_pe(codec.up, lpe, cfg)
+            torch.cuda.synchronize()
+            stack_err = (phase_pe - plain_pe).abs().max().item()
+            print(f"{label} phase stack vs plain stack on the card through lpe_to_pe, "
+                  f"{tuple(lpe.shape)} -> {tuple(plain_pe.shape)}: max abs diff {stack_err:.3e} "
+                  f"(atol {STACK_TOL['atol']}, rtol {STACK_TOL['rtol']})")
+            torch.testing.assert_close(phase_pe, plain_pe, **STACK_TOL)
+            out["stack_err"] = stack_err
+            del lpe, plain_pe, phase_pe
+
+    with phase(f"{label} encode"):
         zero_launches()
         t0 = time.perf_counter()
         res = compress(state0)
@@ -680,20 +828,16 @@ def kodak_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
         enc_s = time.perf_counter() - t0
         t = res.timings
         groups = {n: codec.meta(n).n_groups for n in codec.level_names}
-        launched_enc = read_launches(t["phase1_epochs"] + t["finetune_epochs"], "Kodak encode")
+        launched_enc = read_launches(t["phase1_epochs"] + t["finetune_epochs"], f"{label} encode")
         if not all(res.state.level(n).compressed.all() for n in codec.level_names):
-            raise AssertionError("the Kodak encode left groups uncoded")
-        print(f"Kodak encode (reference schedule, phase 1 {t['phase1_epochs']} epochs, 1-epoch "
-              f"finetunes; groups coded hh {groups['hh']}, h {groups['h']}, w {groups['w']}, "
-              f"all): wall {enc_s:.3f} s (optimize {t['optimize_s']:.3f} s, code "
-              f"{t['code_s']:.3f} s); PSNR {np.mean(res.distortion):.4f} dB @ "
-              f"{res.bitrate:.4f} bpp [{card}]")
-        check_bitstream(codec, res, X, cfg, art, "Kodak encode")
-
-        def epochs(n, remat=False):
-            return encoder.optimize(codec, state0, X, Y, cfg, gen, n_epochs=n, sample_size=S,
-                                    remat=remat)
-
+            raise AssertionError(f"the {label} encode left groups uncoded")
+        print(f"{label} encode (reference schedule, phase 1 {t['phase1_epochs']} epochs, 1-epoch "
+              f"finetunes; groups coded "
+              + ", ".join(f"{n} {groups[n]}" for n in reversed(codec.level_names))
+              + f", all): wall {enc_s:.3f} s (optimize {t['optimize_s']:.3f} s, code "
+              f"{t['code_s']:.3f} s); distortion {np.mean(res.distortion):.4f} "
+              f"({'RMSD' if cfg.name == 'protein' else 'PSNR dB'}) @ {res.bitrate:.4f} [{card}]")
+        check_bitstream(codec, res, X, cfg, art, f"{label} encode")
         epochs(2)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -703,19 +847,24 @@ def kodak_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
         torch.cuda.synchronize()
         epoch_s = (time.perf_counter() - t0) / 10
         epoch_peak = torch.cuda.max_memory_allocated()
-        step_s = {}
-        for n in ("hh", "h", "w"):
-            step_s[n] = wall_s(lambda: encoder.encode_step(codec, state0, n), 5)
+        step_s = {n: wall_s(lambda: encoder.encode_step(codec, state0, n), 5)
+                  for n in reversed(codec.level_names)}
         out["encode"] = {"epoch_s": epoch_s, "peak_mib": epoch_peak / 2**20,
                          "code_step_s": step_s, "wall_s": enc_s}
-        print(f"Kodak epoch_s {epoch_s:.6f} (R={R}, S={S}, mean of 10 warm epochs), peak device "
+        print(f"{label} epoch_s {epoch_s:.6f} (R={R}, S={S}, mean of 10 warm epochs), peak device "
               f"memory {epoch_peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB allocated before "
-              f"the epochs); code_step_s hh {step_s['hh']:.6f}, h {step_s['h']:.6f}, w "
-              f"{step_s['w']:.6f} (one encode_step, mean of 5) [{card}]")
+              f"the epochs); code_step_s "
+              + ", ".join(f"{n} {v:.6f}" for n, v in step_s.items())
+              + f" (one encode_step, mean of 5) [{card}]")
         busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: epochs(1), 5)
         out["encode"]["idle"] = 1 - busy_us / wall_us
-        print(f"Kodak epoch under the profiler: {busy_us / 5e3:.3f} ms device time per epoch in "
-              f"{wall_us / 5e3:.3f} ms wall, idle share {1 - busy_us / wall_us:.4f}")
+        conv_us = sum(us for name, us in by_kernel.items()
+                      if any(k in name.lower() for k in CONV_KERNEL_WORDS))
+        out["encode"]["device_ms"] = busy_us / 5e3
+        out["encode"]["conv_share"] = conv_us / busy_us
+        print(f"{label} epoch under the profiler: {busy_us / 5e3:.3f} ms device time per epoch in "
+              f"{wall_us / 5e3:.3f} ms wall, idle share {1 - busy_us / wall_us:.4f}; the conv "
+              f"stack's cuDNN kernels {100 * conv_us / busy_us:.1f}%")
         for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
             print(f"  {us / 5e3:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name[:100]}")
         stacks = {"plain": apply_upsample, "phase": apply_upsample_phased}
@@ -723,65 +872,98 @@ def kodak_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
         for name in ("plain", "phase", "phase", "plain"):
             with stack(stacks[name]):
                 stack_s[name].append(wall_s(lambda: epochs(5), 1) / 5)
-        print("Kodak epoch_s by conv stack (order plain, phase, phase, plain): "
+        out["encode"]["epoch_s_by_stack"] = stack_s
+        print(f"{label} epoch_s by conv stack (order plain, phase, phase, plain): "
               + ", ".join(f"{n} {v[0]:.6f} / {v[1]:.6f}" for n, v in stack_s.items())
               + f"; lpe_to_pe uses {mappings.STACK.__name__} [{card}]")
 
-    with phase("Kodak remat"):
-        def run(remat):
-            g = torch.Generator(device="cuda").manual_seed(seed)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            st = encoder.optimize(codec, state0, X, Y, cfg, g, n_epochs=KODAK_REMAT_EPOCHS,
-                                  sample_size=S, remat=remat)
-            torch.cuda.synchronize()
-            return (st, (time.perf_counter() - t0) / KODAK_REMAT_EPOCHS,
-                    torch.cuda.max_memory_allocated())
+    if remat:
+        with phase(f"{label} remat"):
+            def run(remat):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                st = encoder.optimize(codec, state0, X, Y, cfg, g, n_epochs=REMAT_EPOCHS,
+                                      sample_size=S, remat=remat)
+                torch.cuda.synchronize()
+                return (st, (time.perf_counter() - t0) / REMAT_EPOCHS,
+                        torch.cuda.max_memory_allocated())
 
-        epochs(1, remat=True)
-        runs = {False: [], True: []}
-        for remat in (False, True, True, False):
-            runs[remat].append(run(remat))
-        repeat = same_posteriors(runs[False][0][0], runs[False][1][0])
-        equal = same_posteriors(runs[True][0][0], runs[False][0][0])
-        out["remat"] = {k: {"epoch_s": [r[1] for r in v], "peak_mib": v[0][2] / 2**20}
-                        for k, v in (("on", runs[True]), ("off", runs[False]))}
-        print(f"Kodak {KODAK_REMAT_EPOCHS} epochs from one state and generator state (order off, "
-              f"on, on, off): remat on epoch_s {runs[True][0][1]:.6f} / {runs[True][1][1]:.6f}, "
-              f"peak {runs[True][0][2] / 2**20:.1f} MiB; off epoch_s {runs[False][0][1]:.6f} / "
-              f"{runs[False][1][1]:.6f}, peak {runs[False][0][2] / 2**20:.1f} MiB; off twice "
-              f"bitwise equal {repeat}; on vs off bitwise equal {equal} [{card}]")
-        if not (repeat and equal):
-            raise AssertionError("the Kodak epochs do not repeat bit for bit, or remat changes "
-                                 "the posteriors")
+            epochs(1, remat=True)
+            runs = {False: [], True: []}
+            for on in (False, True, True, False):
+                runs[on].append(run(on))
+            repeat = same_posteriors(runs[False][0][0], runs[False][1][0])
+            equal = same_posteriors(runs[True][0][0], runs[False][0][0])
+            out["remat"] = {k: {"epoch_s": [r[1] for r in v], "peak_mib": v[0][2] / 2**20}
+                            for k, v in (("on", runs[True]), ("off", runs[False]))}
+            print(f"{label} {REMAT_EPOCHS} epochs from one state and generator state (order off, "
+                  f"on, on, off): remat on epoch_s {runs[True][0][1]:.6f} / "
+                  f"{runs[True][1][1]:.6f}, peak {runs[True][0][2] / 2**20:.1f} MiB; off epoch_s "
+                  f"{runs[False][0][1]:.6f} / {runs[False][1][1]:.6f}, peak "
+                  f"{runs[False][0][2] / 2**20:.1f} MiB; off twice bitwise equal {repeat}; on vs "
+                  f"off bitwise equal {equal} [{card}]")
+            if not (repeat and equal):
+                raise AssertionError(f"the {label} epochs do not repeat bit for bit, or remat "
+                                     "changes the posteriors")
 
-    with phase("Kodak resume"):
-        with tempfile.TemporaryDirectory() as tmp:
-            extra = {"state_path": os.path.join(tmp, "enc_state.npz"),
-                     "save_every": KODAK_SAVE_EVERY,
-                     "state_extra": {"prior_fingerprint": prior_fingerprint(art)}}
-            with crash_after_first_snapshot("coding", level="h"):
-                try:
-                    compress(state0, **extra)
-                    raise AssertionError("no snapshot was taken at level h")
-                except Crash:
-                    pass
-            resume, state = resume_from(extra["state_path"], art, "cuda")
-            coded = {n: int(state.level(n).compressed.sum(1).max()) for n in codec.level_names}
-            print(f"crashed after the first snapshot at level h; resuming with groups coded "
-                  f"{coded}")
-            res_r = compress(state, **extra, **resume)
-        indices_equal = all(np.array_equal(res_r.indices[n], res.indices[n])
-                            for n in codec.level_names)
-        posteriors_equal = same_posteriors(res_r.state, res.state)
-        print(f"Kodak encode crashed at level h and resumed vs uninterrupted: indices bitwise "
-              f"equal {indices_equal}, posteriors bitwise equal {posteriors_equal}")
-        check_bitstream(codec, res_r, X, cfg, art, "resumed Kodak encode")
-        if not (indices_equal and posteriors_equal):
-            raise AssertionError("the resumed Kodak encode differs from the uninterrupted one")
-    out["launches"] = {"kodak_decode": launched_dec, "kodak_encode": launched_enc}
+    if resume:
+        with phase(f"{label} resume"):
+            with tempfile.TemporaryDirectory() as tmp:
+                extra = {"state_path": os.path.join(tmp, "enc_state.npz"),
+                         "save_every": SAVE_EVERY,
+                         "state_extra": {"prior_fingerprint": prior_fingerprint(art)}}
+                with crash_after_first_snapshot("coding", level="h"):
+                    try:
+                        compress(state0, **extra)
+                        raise AssertionError("no snapshot was taken at level h")
+                    except Crash:
+                        pass
+                resume_kw, state = resume_from(extra["state_path"], art, "cuda")
+                coded = {n: int(state.level(n).compressed.sum(1).max())
+                         for n in codec.level_names}
+                print(f"crashed after the first snapshot at level h; resuming with groups coded "
+                      f"{coded}")
+                res_r = compress(state, **extra, **resume_kw)
+            indices_equal = all(np.array_equal(res_r.indices[n], res.indices[n])
+                                for n in codec.level_names)
+            posteriors_equal = same_posteriors(res_r.state, res.state)
+            print(f"{label} encode crashed at level h and resumed vs uninterrupted: indices "
+                  f"bitwise equal {indices_equal}, posteriors bitwise equal {posteriors_equal}")
+            check_bitstream(codec, res_r, X, cfg, art, f"resumed {label} encode")
+            if not (indices_equal and posteriors_equal):
+                raise AssertionError(f"the resumed {label} encode differs from the uninterrupted "
+                                     "one")
+    key = label.lower()
+    out["launches"] = {f"{key}_decode": launched_dec, f"{key}_encode": launched_enc}
     return out
+
+
+def kodak_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
+    """The phases at KODAK's full geometry (levels w, h, hh of 96, 6 and 1
+    rows, P = 4,096, S = 5) on one smooth 512 x 768 image: both kernels at
+    P = 4,096 (and siren_bwd at B = 20), decode, encode, remat, and a crash
+    at level h resumed."""
+    return config_phases(KODAK, kodak_data(seed), seed, card, errs, bwd_errs, "Kodak",
+                         small_bwd=True, remat=True, resume=True)
+
+
+def modality_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
+    """AUDIO (60 / 15 / 1 rows, P = 800, widths 32-32-32-32-1), VIDEO (64 / 4
+    / 1 rows, P = 6,144, widths 34-32-32-32-3, the 3-D stack with its
+    (6, 4, 4) factor) and PROTEIN (1,000 chains, P = 96, one level) at their
+    full geometry, each with the export; video also with the phase stack
+    held against the plain one, remat off/on/on/off (the epochs repeat bit
+    for bit) and a crash at level h resumed."""
+    return {
+        "audio": config_phases(AUDIO, audio_data(seed), seed, card, errs, bwd_errs, "Audio",
+                               media=True),
+        "video": config_phases(VIDEO, video_data(seed), seed, card, errs, bwd_errs, "Video",
+                               stack_check=True, remat=True, resume=True, media=True),
+        "protein": config_phases(PROTEIN, protein_data(seed), seed, card, errs, bwd_errs,
+                                 "Protein", media=True),
+    }
 
 
 def determinism(codec, state0, X, Y, cfg, seed: int) -> dict:
@@ -1181,6 +1363,8 @@ def main(argv=None) -> int:
             raise AssertionError("the resumed encode differs from the uninterrupted one")
 
     kodak = kodak_phases(args.seed, card, errs, bwd_errs)
+    modalities = modality_phases(args.seed, card, errs, bwd_errs)
+    paths = {"kodak": kodak, **modalities}
 
     kernels = [{
         "name": "siren_fwd",
@@ -1193,7 +1377,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"decode": launched["siren_fwd"], "encode": launched_enc["siren_fwd"],
                              "adaptive_encode": launched_ad["siren_fwd"],
                              "quality_encode": launched_q["siren_fwd"],
-                             **{p: n["siren_fwd"] for p, n in kodak["launches"].items()}},
+                             **{p: n["siren_fwd"] for c in paths.values()
+                                for p, n in c["launches"].items()}},
         "max_abs_err": max(errs),
         "ms": ms[1],
         "ms_8_samples_per_block": ms[8],
@@ -1203,7 +1388,7 @@ def main(argv=None) -> int:
         "bound_route": ops_route if bound_by == "operations" else "HBM",
         "fp32_fma_bound_ms": fma_bound_ms,
         "library_ms": None,
-        "kodak": kodak["siren_fwd"],
+        **{name: c["siren_fwd"] for name, c in paths.items()},
     }, {
         "name": "siren_bwd",
         "route": "cuda",
@@ -1214,7 +1399,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"decode": launched["siren_bwd"], "encode": launched_enc["siren_bwd"],
                              "adaptive_encode": launched_ad["siren_bwd"],
                              "quality_encode": launched_q["siren_bwd"],
-                             **{p: n["siren_bwd"] for p, n in kodak["launches"].items()}},
+                             **{p: n["siren_bwd"] for c in paths.values()
+                                for p, n in c["launches"].items()}},
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
@@ -1223,7 +1409,7 @@ def main(argv=None) -> int:
         "bound_route": bwd_ops_route if bwd_bound_by == "operations" else "HBM",
         "fp32_fma_bound_ms": bwd_fma_bound_ms,
         "library_ms": None,
-        "kodak": kodak["siren_bwd"],
+        **{name: c["siren_bwd"] for name, c in paths.items()},
     }]
     print("kernels: siren_fwd (CUDA, replaces recombiner_tpu/ops/fused_inr.py::_fwd_kernel and "
           "recombiner_tpu/ops/pallas_inr.py::_kernel), held against siren_forward_reference "
@@ -1243,6 +1429,15 @@ def main(argv=None) -> int:
           f"MiB; remat epoch_s on {kodak['remat']['on']['epoch_s']}, off "
           f"{kodak['remat']['off']['epoch_s']}, peak on {kodak['remat']['on']['peak_mib']:.1f} / "
           f"off {kodak['remat']['off']['peak_mib']:.1f} MiB [{card}]")
+    for name, c in modalities.items():
+        e, d = c["encode"], c["decode"]
+        print(f"{name} (R={c['rows']}, S={SAMPLE_SIZE}): epoch_s {e['epoch_s']:.6f} (device "
+              f"{e['device_ms']:.3f} ms, conv kernels {100 * e['conv_share']:.1f}%), epoch peak "
+              f"memory {e['peak_mib']:.1f} MiB, epoch idle share {e['idle']:.4f}, code_step_s "
+              + ", ".join(f"{n} {v:.6f}" for n, v in e["code_step_s"].items())
+              + f", encode {e['wall_s']:.3f} s; decode {d['wall_ms']:.3f} ms wall, "
+              f"{d['device_ms']:.3f} ms device, peak {d['peak_mib']:.1f} MiB; export "
+              f"{c['export']['files']} {c['export']['kind']} files [{card}]")
     print(f"total: {time.perf_counter() - t_all:.2f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,12 @@
 """Compression CLI of the port, flag-compatible with
-``recombiner_tpu/cli/compress.py``: encode one test batch on the CUDA card
-(or, with ``--device cpu``, on the CPU) on the reference, adaptive or
-quality schedule, resumable from ``--state_path``, and write the same
-``Distortion_*.csv``, ``GroupIndex_*.csv`` (and ``H_``/``HH_`` ones for a
-patch config such as kodak) and ``.rctb`` bitstream.
+``recombiner_tpu/cli/compress.py``: encode one test batch (images from a
+directory; audio and video clips or protein chains from its
+``test_dataset.npz``) on the CUDA card (or, with ``--device cpu``, on the
+CPU) on the reference, adaptive or quality schedule, resumable from
+``--state_path``, and write the same ``Distortion_*.csv`` (unrounded PSNR
+for the audio family, RMSD per chain for protein), ``GroupIndex_*.csv``
+(and ``H_``/``HH_`` ones for a patch config such as kodak, audio or video)
+and ``.rctb`` bitstream.
 
     python -m recombiner_tpu_torch.cli.compress --test_dir DIR --test_idx 0 \\
         --prior_path out/PRIOR_....npz --save_dir out/ [--schedule adaptive] \\

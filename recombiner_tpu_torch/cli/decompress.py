@@ -1,10 +1,12 @@
 """Decompression CLI of the port: decode a ``.rctb`` bitstream against its
 prior artifact on the CUDA card (or, with ``--device cpu``, on the CPU),
 and save the reconstruction as ``(rows, P, out)``: one row per datapoint,
-or per patch of a patch config, as the JAX package's CLI saves it.
+or per patch of a patch config, as the JAX package's CLI saves it. With
+``--export_media`` each datapoint is also written as a PNG (2-D), WAV
+(audio), PDB (protein) or NPZ (video) file (``data/export.py``).
 
     python -m recombiner_tpu_torch.cli.decompress --bitstream out/bitstream_test_id_0.rctb \\
-        --prior_path out/PRIOR_....npz --save_dir out/
+        --prior_path out/PRIOR_....npz --save_dir out/ [--export_media]
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ def parse_args(argv=None):
     p.add_argument("--bitstream", required=True)
     p.add_argument("--prior_path", required=True)
     p.add_argument("--save_dir", required=True)
+    p.add_argument("--export_media", action="store_true",
+                   help="also write reassembled PNG/WAV/PDB/NPZ files per datapoint")
     p.add_argument("--device", default=None,
                    help="torch device; default the CUDA card ('cpu' to run without one)")
     return p.parse_args(argv)
@@ -57,6 +61,12 @@ def main(argv=None):
     )
     np.save(out, y)
     print(f"Decoded {n_rows} rows -> {out} shape={y.shape}", flush=True)
+    if args.export_media:
+        from recombiner_tpu_torch.data.export import export_reconstructions
+
+        stem = os.path.basename(args.bitstream).replace(".rctb", "")
+        paths = export_reconstructions(y, cfg, args.save_dir, stem=stem)
+        print(f"Exported {len(paths)} media files ({paths[0]} ...)", flush=True)
     return y
 
 

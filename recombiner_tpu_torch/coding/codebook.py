@@ -27,24 +27,24 @@ LEVEL_TAGS = {"w": 0, "h": 1, "hh": 2}
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(v: np.ndarray, r: int) -> np.ndarray:
-    return (v << np.uint32(r)) | (v >> np.uint32(32 - r))
-
-
 def threefry2x32(k0, k1, x0: np.ndarray, x1: np.ndarray):
     """Threefry-2x32 with 20 rounds (the hash of ``jax._src.prng``) on
-    uint32 arrays; returns the two output words."""
+    uint32 arrays; returns the two output words (new arrays)."""
     k0, k1 = np.uint32(k0), np.uint32(k1)
     ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
     x0 = x0.astype(np.uint32) + ks[0]
     x1 = x1.astype(np.uint32) + ks[1]
+    t = np.empty_like(x1)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 = x0 + x1
-            x1 = _rotl(x1, r) ^ x0
-        x0 = x0 + ks[(i + 1) % 3]
-        x1 = x1 + ks[(i + 2) % 3]
-        x1 = x1 + np.uint32(i + 1)
+            x0 += x1
+            np.left_shift(x1, np.uint32(r), out=t)  # x1 = rotl(x1, r) ^ x0, in place
+            np.right_shift(x1, np.uint32(32 - r), out=x1)
+            x1 |= t
+            x1 ^= x0
+        x0 += ks[(i + 1) % 3]
+        x1 += ks[(i + 2) % 3]
+        x1 += np.uint32(i + 1)
     return x0, x1
 
 
@@ -64,10 +64,11 @@ def _fold_in(key, data: int):
     return a[0], b[0]
 
 
-def threefry_bits(key, n: int) -> np.ndarray:
-    """32 random bits per element of a flat array of ``n``, partitionable
-    layout: counts are the 64-bit iota as (hi, lo) words."""
-    lo = np.arange(n, dtype=np.uint64)
+def threefry_bits(key, n: int, start: int = 0) -> np.ndarray:
+    """32 random bits per element of elements ``start`` to ``start + n`` of
+    a flat array, partitionable layout: counts are the 64-bit iota as (hi,
+    lo) words."""
+    lo = np.arange(start, start + n, dtype=np.uint64)
     hi = (lo >> np.uint64(32)).astype(np.uint32)
     b0, b1 = threefry2x32(key[0], key[1], hi, lo.astype(np.uint32))
     return b0 ^ b1
@@ -103,15 +104,24 @@ def erf_inv_f32(x: np.ndarray) -> np.ndarray:
     return np.where(np.abs(x) == 1, x * np.finfo(np.float32).max, out).astype(np.float32)
 
 
+# elements per chunk of threefry_normal: its temporaries stay in the cache
+_CHUNK = 1 << 16
+
+
 def threefry_normal(seed: int, tag: int, shape) -> np.ndarray:
-    """``jax.random.normal(fold_in(key(seed), tag), shape, float32)``."""
+    """``jax.random.normal(fold_in(key(seed), tag), shape, float32)``,
+    computed a chunk of elements at a time (the same numbers as a whole)."""
     n = int(np.prod(shape))
-    bits = threefry_bits(_fold_in(_key(seed), tag), n)
+    key = _fold_in(_key(seed), tag)
     one = np.float32(1.0)
-    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - one
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    u = np.maximum(lo, floats * (one - lo) + lo)
-    return (np.float32(np.sqrt(2)) * erf_inv_f32(u)).reshape(shape)
+    out = np.empty(n, np.float32)
+    for start in range(0, n, _CHUNK):
+        bits = threefry_bits(key, min(_CHUNK, n - start), start)
+        floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - one
+        u = np.maximum(lo, floats * (one - lo) + lo)
+        out[start:start + bits.shape[0]] = np.float32(np.sqrt(2)) * erf_inv_f32(u)
+    return out.reshape(shape)
 
 
 def make_codebook(seed: int, level: str, n_samples: int, width: int,

@@ -85,7 +85,7 @@ class Codec:
     h: Optional[LevelMeta]
     hh: Optional[LevelMeta]
     A: Tuple[torch.Tensor, ...]
-    up: dict  # {conv{i}: {w (OIHW), b}}
+    up: dict  # {conv{i}: {w (O, I, *k), b}}
 
     @property
     def device(self) -> torch.device:

@@ -38,3 +38,12 @@ def points_from_data(data: Sequence[np.ndarray],
         Xs.append(x)
         Ys.append(y)
     return np.concatenate(Xs), np.concatenate(Ys)
+
+
+def to_numpy_channel_last(t) -> np.ndarray:
+    """A torch tensor (channel-first (C, *spatial), as the reference's pickled
+    datasets store them) or a numpy array (channel-last, already the
+    format) -> numpy channel-last."""
+    if hasattr(t, "detach"):
+        return np.moveaxis(t.detach().cpu().numpy(), 0, -1)
+    return np.asarray(t)

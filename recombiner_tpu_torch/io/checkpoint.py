@@ -45,7 +45,7 @@ class PriorArtifact:
     h: Optional[LevelArtifact]  # level 2 (patch mode only)
     hh: Optional[LevelArtifact]  # level 3
     A: list  # per-layer linear transform matrices
-    up: Dict  # upsampler conv params {conv{i}: {w (HWIO), b}}
+    up: Dict  # upsampler conv params {conv{i}: {w (*k, I, O), b}}
     codebook_seed: int = 42
     codebook_kind: str = "threefry"  # part of the bitstream format
 

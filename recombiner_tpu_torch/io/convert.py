@@ -16,20 +16,28 @@ import torch
 from recombiner_tpu_torch.device import DeviceLike, resolve_device
 
 
+def conv_weight_to_torch(w: np.ndarray) -> np.ndarray:
+    """A conv weight of the JAX package's layout, (*k, I, O) for a 1-, 2- or
+    3-D kernel (WIO, HWIO, DHWIO), -> torch's (O, I, *k)."""
+    d = w.ndim - 2
+    return np.transpose(w, (d + 1, d, *range(d)))
+
+
 def torch_params_from_artifact(art, device: DeviceLike = None) -> Tuple[List[torch.Tensor], Dict]:
     """(A, up) of a prior artifact -> tensors on ``device``.
 
     ``art`` is anything with ``A`` (a list of (d, d) arrays) and ``up``
-    ({conv{i}: {w: HWIO, b}}) as numpy: a loaded artifact of either package,
-    or parameters a JAX test built and passed through ``np.asarray``.
-    Conv weights go from HWIO to torch's OIHW."""
+    ({conv{i}: {w: (*k, I, O), b}}, k one to three axes) as numpy: a loaded
+    artifact of either package, or parameters a JAX test built and passed
+    through ``np.asarray``. Conv weights go to torch's (O, I, *k)
+    (``conv_weight_to_torch``)."""
     dev = resolve_device(device)
     A = [torch.tensor(np.asarray(a, np.float32), device=dev) for a in art.A]
     up = {}
     for name, conv in art.up.items():
         w = np.asarray(conv["w"], np.float32)
         up[name] = {
-            "w": torch.tensor(np.transpose(w, (3, 2, 0, 1)), device=dev).contiguous(),
+            "w": torch.tensor(conv_weight_to_torch(w), device=dev).contiguous(),
             "b": torch.tensor(np.asarray(conv["b"], np.float32), device=dev),
         }
     return A, up

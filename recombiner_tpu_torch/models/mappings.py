@@ -1,5 +1,5 @@
 """Latent-PE -> INR-input mapping and hierarchical latent sampling, a copy of
-``recombiner_tpu/models/mappings.py`` for 2-D configs.
+``recombiner_tpu/models/mappings.py`` for 1-, 2- and 3-D configs.
 
 Row convention (patch configs): posterior row r = datapoint d *
 prod(patch_nums) + p, p the row-major index over the patch grid, as the

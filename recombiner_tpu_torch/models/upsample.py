@@ -5,11 +5,13 @@ plain stack of ``recombiner_tpu/models/upsample.py:68-108``
 
 Topology per layer i: nearest-upsample(scale_i) -> conv(k_i, pad_i) ->
 leaky_relu(0.01), no activation after the last conv; kernels (5, 3, 3),
-latent_dim -> 64 -> 64 -> 16. The public layout is the JAX package's
-channel-last (N, H, W, C); inside, the stack runs NCHW with OIHW weights
-(``recombiner_tpu_torch/io/convert.py`` turns the artifact's HWIO weights
-round). The tests hold both forms to both JAX versions; ``mappings``
-calls one of them. 2-D only for now.
+latent_dim -> 64 -> 64 -> 16. 1-D (audio, protein), 2-D (images) and 3-D
+(video, with an anisotropic first factor such as (6, 4, 4)). The public
+layout is the JAX package's channel-last (N, *spatial, C); inside, the
+stack runs channel-first with (O, I, *k) weights
+(``recombiner_tpu_torch/io/convert.py`` turns the artifact's (*k, I, O)
+weights round). The tests hold both forms to both JAX versions;
+``mappings`` calls one of them.
 """
 
 from __future__ import annotations
@@ -24,6 +26,25 @@ import torch.nn.functional as F
 
 ScaleFactor = Union[int, Tuple[int, ...]]
 _KERNELS = (5, 3, 3)
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _factors(f: ScaleFactor, d: int) -> Tuple[int, ...]:
+    return (f,) * d if isinstance(f, int) else tuple(f)
+
+
+def _conv(d: int):
+    if d not in _CONV:
+        raise ValueError(f"data_dim {d}: the upsampler is 1-, 2- or 3-D")
+    return _CONV[d]
+
+
+def _channels_first(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, *range(2, x.dim()), 1)
 
 
 def apply_upsample(
@@ -33,24 +54,19 @@ def apply_upsample(
     layerwise_scale_factors: Sequence[ScaleFactor],
     paddings: Sequence[int],
 ) -> torch.Tensor:
-    """Map latent PEs (N, H, W, latent_dim) -> (N, H', W', out).
+    """Map latent PEs (N, *lpe_spatial, latent_dim) -> (N, *pixel_sizes, out).
 
-    ``params[f"conv{i}"]`` holds ``w`` in OIHW and ``b``."""
-    if data_dim != 2:
-        raise NotImplementedError(
-            "the port's upsampler is 2-D only; 1-D and 3-D come with the audio, "
-            "protein and video configs (ROADMAP.md, port queue)"
-        )
-    x = x.permute(0, 3, 1, 2)
+    ``params[f"conv{i}"]`` holds ``w`` as (O, I, *k) and ``b``."""
+    conv = _conv(data_dim)
+    x = _channels_first(x)
     for i in range(3):
-        f = layerwise_scale_factors[i]
-        fh, fw = (f, f) if isinstance(f, int) else tuple(f)
-        x = x.repeat_interleave(fh, dim=2).repeat_interleave(fw, dim=3)
-        p = int(paddings[i])
-        x = F.conv2d(x, params[f"conv{i}"]["w"], params[f"conv{i}"]["b"], padding=p)
+        for axis, f in enumerate(_factors(layerwise_scale_factors[i], data_dim)):
+            if f != 1:
+                x = x.repeat_interleave(f, dim=2 + axis)
+        x = conv(x, params[f"conv{i}"]["w"], params[f"conv{i}"]["b"], padding=int(paddings[i]))
         if i != 2:
             x = F.leaky_relu(x, negative_slope=0.01)
-    return x.permute(0, 2, 3, 1)
+    return _channels_last(x)
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,30 +107,48 @@ def _phase_matrix_on(k: int, factors: Tuple[int, ...], p: int,
     return torch.as_tensor(phase_kernel_matrix(k, factors, p)[0], device=device)
 
 
+def _depth_to_space(y: torch.Tensor, factors: Tuple[int, ...]) -> torch.Tensor:
+    """(N, cout * prod(f), *S) with channels cout-major, phase-minor (the
+    phase row-major over the axes) -> (N, cout, *(S * f)): output position
+    s * f + phi of each axis takes phase phi's channel at s. The result is
+    contiguous channels-first whatever the layout of y."""
+    d = len(factors)
+    N, S = y.shape[0], y.shape[2:]
+    cout = y.shape[1] // int(np.prod(factors))
+    y = y.reshape(N, cout, *factors, *S)
+    perm = [0, 1]
+    for i in range(d):
+        perm += [2 + d + i, 2 + i]
+    return y.permute(*perm).reshape(N, cout, *(S[i] * factors[i] for i in range(d)))
+
+
 def _phased_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
-                  factors: Tuple[int, int], p: int) -> torch.Tensor:
-    """x (N, cin, H, W) -> nearest-upsample(factors) + conv(k, pad p) + bias,
-    as one conv on the source grid with f^2 * cout output channels and a
-    depth-to-space step. The phase kernel is M times the learned kernel
+                  factors: Tuple[int, ...], p: int) -> torch.Tensor:
+    """x (N, cin, *S) -> nearest-upsample(factors) + conv(k, pad p) + bias,
+    as one conv on the source grid with prod(f) * cout output channels and
+    a depth-to-space step. The phase kernel is M times the learned kernel
     (an f32 product, which the caller's exact_f32 keeps exact on the
-    card). Output channels are cout-major, phase-minor, which is
-    ``F.pixel_shuffle``'s order (the JAX rewrite orders them phase-major
-    and transposes, ``phase_upsample.py:86-118``: the same interleave)."""
-    fh, fw = factors
-    if fh != fw:
-        raise NotImplementedError("the phase stack takes square upsampling factors only")
+    card). Output channels are cout-major, phase-minor (the JAX rewrite
+    orders them phase-major and transposes, ``phase_upsample.py:86-118``:
+    the same interleave)."""
+    d = len(factors)
     # a size-preserving conv (2p = k - 1) pads its source grid alike on both sides
     if 2 * p != k - 1:
         raise NotImplementedError(f"the phase stack takes size-preserving convs only "
                                   f"(k={k}, p={p})")
-    _, ext, pads = phase_kernel_matrix(k, (fh, fw), p)
+    _, ext, pads = phase_kernel_matrix(k, factors, p)
+    f_prod = int(np.prod(factors))
     cout, cin = w.shape[:2]
-    taps = w.permute(2, 3, 1, 0).reshape(k * k, cin * cout)  # (kh, kw) row-major
-    kp = _phase_matrix_on(k, (fh, fw), p, w.device).to(taps.dtype) @ taps  # (ext^2 f^2, cin*cout)
-    kp = kp.reshape(*ext, fh * fw, cin, cout).permute(4, 2, 3, 0, 1)
-    kp = kp.reshape(cout * fh * fw, cin, *ext)
-    y = F.conv2d(x, kp, b.repeat_interleave(fh * fw), padding=(pads[0][0], pads[1][0]))
-    return F.pixel_shuffle(y, fh)
+    taps = w.permute(*range(2, 2 + d), 1, 0).reshape(k**d, cin * cout)  # taps row-major
+    kp = _phase_matrix_on(k, factors, p, w.device).to(taps.dtype) @ taps  # (ext f, cin*cout)
+    kp = kp.reshape(*ext, f_prod, cin, cout).permute(d + 2, d, d + 1, *range(d))
+    kp = kp.reshape(cout * f_prod, cin, *ext)
+    y = _conv(d)(x, kp, b.repeat_interleave(f_prod), padding=tuple(lo for lo, _ in pads))
+    if d == 2 and factors[0] == factors[1]:
+        # the same values as _depth_to_space, but in the conv's channels-last
+        # strides, which the next conv's algorithm and rounding depend on
+        return F.pixel_shuffle(y, factors[0])
+    return _depth_to_space(y, factors)
 
 
 def apply_upsample_phased(
@@ -126,18 +160,12 @@ def apply_upsample_phased(
 ) -> torch.Tensor:
     """``apply_upsample`` computed as phase convs on each layer's source
     grid: the nearest-upsampled grids are never built, and conv0 does
-    (k / ext)^2 fewer multiply-adds."""
-    if data_dim != 2:
-        raise NotImplementedError(
-            "the port's upsampler is 2-D only; 1-D and 3-D come with the audio, "
-            "protein and video configs (ROADMAP.md, port queue)"
-        )
-    x = x.permute(0, 3, 1, 2)
+    (k / ext)^d fewer multiply-adds."""
+    _conv(data_dim)
+    x = _channels_first(x)
     for i in range(3):
-        f = layerwise_scale_factors[i]
-        factors = (f, f) if isinstance(f, int) else tuple(f)
         x = _phased_layer(x, params[f"conv{i}"]["w"], params[f"conv{i}"]["b"], _KERNELS[i],
-                          factors, int(paddings[i]))
+                          _factors(layerwise_scale_factors[i], data_dim), int(paddings[i]))
         if i != 2:
             x = F.leaky_relu(x, negative_slope=0.01)
-    return x.permute(0, 2, 3, 1)
+    return _channels_last(x)

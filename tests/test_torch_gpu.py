@@ -343,3 +343,47 @@ def test_snapshot_written_on_card_loads_on_cpu(cuda, tmp_path):
     assert encode_state.generator_state(header, "cpu") is None
     assert torch.equal(encode_state.generator_state(header, "cuda"), gen.get_state())
     assert np.array_equal(leaves[1], opt.mu[0].cpu().numpy()) and int(leaves[0]) == 3
+
+
+@pytest.mark.parametrize("name,B", [("video", 320), ("video", 2), ("audio", 300), ("audio", 2)])
+def test_backward_kernel_at_the_other_modalities_shapes(cuda, name, B):
+    """An S = 5 epoch of one video clip launches B = 320 samples of widths
+    34-32-32-32-3 at P = 6,144; one audio clip B = 300 of 32-32-32-32-1 at
+    P = 800: the run-time-width instance with the scalar copies of the
+    34-wide input and the 1-wide output, over 24 and 4 pixel tiles; two
+    launches bitwise equal."""
+    from recombiner_tpu_torch.config import AUDIO, VIDEO
+
+    cfg = {"video": VIDEO, "audio": AUDIO}[name]
+    x, theta = _inputs(cfg, B, cfg.n_pixels, cuda)
+    dy = torch.randn(B, cfg.n_pixels, cfg.output_dim, device=cuda)
+    dx, dtheta = fused_inr.siren_backward(x, theta, dy, cfg.net_dims, cfg.w0)
+    again = fused_inr.siren_backward(x, theta, dy, cfg.net_dims, cfg.w0)
+    assert torch.equal(dx, again[0]) and torch.equal(dtheta, again[1])
+    want_dx, want_dtheta = fused_inr.siren_backward_reference(x, theta, dy, cfg.net_dims, cfg.w0)
+    _assert_close_of_max(dx, want_dx, "dx")
+    _assert_close_of_max(dtheta, want_dtheta, "dtheta")
+
+
+@pytest.mark.parametrize("factors,canvas", [(((6, 4, 4), 2, 2), (2, 1, 8, 8)),
+                                            (((1, 2, 2), 2, 2), (3, 1, 2, 2))])
+def test_3d_phase_stack_matches_plain_stack_on_card(cuda, factors, canvas):
+    """The 3-D phase-decomposed conv stack (cuDNN 3-D convs and a
+    depth-to-space by view and permute) against the plain stack on the card,
+    video's whole stitched canvas included, at atol 1e-5 and rtol 1e-5;
+    and against the plain stack on the CPU."""
+    from recombiner_tpu_torch.models.upsample import apply_upsample, apply_upsample_phased
+
+    g = torch.Generator().manual_seed(6)
+    up = {}
+    for i, (cin, cout, k) in enumerate([(128, 64, 5), (64, 64, 3), (64, 16, 3)]):
+        b = 1 / np.sqrt(cin * k**3)
+        up[f"conv{i}"] = {"w": (2 * torch.rand(cout, cin, k, k, k, generator=g) - 1) * b,
+                          "b": (2 * torch.rand(cout, generator=g) - 1) * b}
+    x = torch.randn(*canvas, 128, generator=g)
+    args = (3, factors, (2, 1, 1))
+    on_card = {k: {n: t.to(cuda) for n, t in v.items()} for k, v in up.items()}
+    phase = apply_upsample_phased(on_card, x.to(cuda), *args)
+    plain = apply_upsample(on_card, x.to(cuda), *args)
+    torch.testing.assert_close(phase, plain, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(phase.cpu(), apply_upsample(up, x, *args), atol=1e-5, rtol=1e-5)

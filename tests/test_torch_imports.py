@@ -12,12 +12,13 @@ import recombiner_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "flax", "optax", "tqdm", "recombiner_tpu")
-# the encode slices' modules, named so that the check above cannot pass
-# without them
+# the encode slices' and the modalities slice's modules, named so that the
+# check above cannot pass without them
 ENCODE_MODULES = ("coding.encoder", "coding.progressive", "coding.gumbel", "cli.compress",
                   "data.pipeline", "data.image", "data.load_data", "metrics", "io.atomic",
                   "io.encode_state", "io.checkpoint", "models.upsample", "models.mappings",
-                  "utils.memory")
+                  "utils.memory", "data.audio", "data.video", "data.protein", "data.synthetic",
+                  "data.export", "cli.decompress", "io.convert")
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|tqdm|recombiner_tpu)\b", re.M)
 
 
@@ -63,7 +64,7 @@ print(" ".join(mods))
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     imported = set(res.stdout.strip().splitlines()[-1].split())
-    assert len(imported) >= 31
+    assert len(imported) >= 40
     assert {f"recombiner_tpu_torch.{m}" for m in ENCODE_MODULES} <= imported
 
 

@@ -21,11 +21,12 @@ from recombiner_tpu.models.mappings import lpe_to_pe as jax_lpe_to_pe
 from recombiner_tpu.models.upsample import apply_upsample as jax_apply_upsample
 from recombiner_tpu.models.upsample import init_upsample_params
 from recombiner_tpu.ops.phase_upsample import apply_upsample_phased as jax_apply_upsample_phased
-from recombiner_tpu_torch.config import TINY_AUDIO, get_config
+from recombiner_tpu_torch.config import get_config
 from recombiner_tpu_torch.io.convert import torch_params_from_artifact
 from recombiner_tpu_torch.models.mappings import lpe_to_pe
 from recombiner_tpu.ops.phase_upsample import phase_kernel_matrix as jax_phase_kernel_matrix
 from recombiner_tpu_torch.models.upsample import (
+    _depth_to_space,
     apply_upsample,
     apply_upsample_phased,
     phase_kernel_matrix,
@@ -88,9 +89,42 @@ def test_hwio_to_oihw():
 
 
 def test_not_ported_geometries_raise():
+    """The phase stack takes size-preserving convs only (2p = k - 1), in 1-D,
+    2-D and 3-D (the plain stack takes any padding); neither stack takes a
+    4-D canvas. 1-D and 3-D are held to the JAX package in
+    ``test_torch_modalities.py``."""
+    for d in (1, 2, 3):
+        _, up = _params(types.SimpleNamespace(data_dim=d, latent_dim=128, upsample_hidden=64,
+                                              upsample_out=16), seed=5)
+        x = torch.zeros(1, *(1,) * d, 128)
+        with pytest.raises(NotImplementedError, match="size-preserving"):
+            apply_upsample_phased(up, x, d, (4, 2, 2), (1, 1, 1))
+        assert apply_upsample(up, x, d, (4, 2, 2), (1, 1, 1)).shape[1:] == (*(8,) * d, 16)
     for stack in (apply_upsample, apply_upsample_phased):
-        with pytest.raises(NotImplementedError):
-            stack({}, torch.zeros(1, 4, 32), 1, (4, 2, 2), (2, 1, 1))
-    # the 1-D patch path stitches its canvas, then meets the 2-D-only stack
-    with pytest.raises(NotImplementedError):
-        lpe_to_pe({}, torch.zeros(4, 1, 4, 128), TINY_AUDIO)
+        with pytest.raises(ValueError, match="1-, 2- or 3-D"):
+            stack({}, torch.zeros(1, 4, 4, 4, 4, 128), 4, (4, 2, 2), (2, 1, 1))
+
+
+@pytest.mark.parametrize("f", [2, 4])
+def test_depth_to_space_is_pixel_shuffle_in_2d(f):
+    """At 2-D square factors (CIFAR's and Kodak's) the phase stack's
+    depth-to-space gives ``F.pixel_shuffle``'s values bit for bit, forward
+    and back. On the channels-last output of a conv, pixel_shuffle keeps
+    channels-last strides and ``_depth_to_space`` does not: the next conv
+    then rounds otherwise, so the 2-D stack keeps pixel_shuffle."""
+    x = torch.from_numpy(np.random.default_rng(f).standard_normal((2, 5, 7, 3 * f * f),
+                                                                   np.float32))
+    x = x.permute(0, 3, 1, 2)  # channels-last strides, as the stack's convs give
+    g = torch.from_numpy(np.random.default_rng(f + 1).standard_normal((2, 3, 5 * f, 7 * f),
+                                                                       np.float32))
+    outs = []
+    for fn in (lambda y: _depth_to_space(y, (f, f)),
+               lambda y: torch.nn.functional.pixel_shuffle(y, f)):
+        xi = x.clone(memory_format=torch.preserve_format).requires_grad_(True)
+        y = fn(xi)
+        y.backward(g)
+        outs.append((y.detach(), xi.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert outs[0][0].is_contiguous()
+    assert outs[1][0].is_contiguous(memory_format=torch.channels_last)
