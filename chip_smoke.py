@@ -5,7 +5,9 @@ resume, at R = 500; then Kodak (the patch path: levels w, h, hh, the
 cross-patch permutations and the stitched conv canvas) at its full
 geometry: decode, encode, remat, and a crash and a resume; then audio,
 video and protein at theirs (the 1-D and 3-D conv stacks): decode,
-encode and the media export, and for video remat and a resume.
+encode and the media export, and for video remat and a resume; then prior
+training: cli.train and cli.rd_sweep on CIFAR at R = 2,000, and Kodak's
+three levels.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -95,13 +97,45 @@ caught and passed over but the crashes phase 12 simulates):
    decode's indices, equal to the decode, and every WAV, NPZ and PDB file
    read back; video also with its phase stack held against the plain one
    on the card, remat off/on/on/off (the epochs repeat bit for bit) and a
-   crash at level h resumed.
+   crash at level h resumed;
+19. CIFAR train: 2,000 smooth 32 x 32 PNGs from --seed written with the
+   port's PNG writer, ``cli.train.main`` on them (R = 2,000, 2.0 bpp, EM
+   cut to TRAIN_EM) with the launch counts read around it (siren_bwd once
+   per epoch, siren_fwd once per epoch and once per log forward); the
+   artifact loaded back (groups, Gmax), ``init_codec`` on it and 8 rows
+   decoded on the card against the CPU within DECODE_TOL;
+20. train timing: train_epoch_s (one S = 1 epoch at R = 2,000, mean of 10
+   warm epochs on the host clock), an epoch's peak device memory, 10
+   epochs under torch.profiler split by kernel name into siren_bwd,
+   siren_fwd, the conv stack, cuBLAS's GEMMs and the rest; by CUDA events
+   the conv stack's forward, data and weight gradients, the A-transforms
+   and their gradients and Adam's step on their own (``epoch_pieces``);
+   and both kernels at B = 2,000 against their plain versions with their
+   bounds;
+21. train determinism: two 2-iteration em_iters runs from one state and
+   generator state, and the loss's gradients twice (every A and conv
+   weight and bias included), bitwise equal; a train state saved, loaded
+   and continued equal to continuing in memory; one epoch at R = 64 from one
+   state and one noise draw on the card against the CPU, within the tests'
+   trained-state bound (``states_close``);
+22. rd_sweep: ``cli.rd_sweep.main`` on 2,000 synthetic CIFAR images and 500
+   test images (EM as in 19, the encode cut to 10 phase-1 epochs and
+   1-epoch finetunes, ``--train_state_dir`` and ``--state_dir``): every
+   group coded, the bitstream decoded back equal to compress's result;
+   then crashed after its first train-state snapshot and relaunched twice
+   from it: the controller restored, the two relaunches bitwise equal;
+23. Kodak train: em_train on 4 smooth 512 x 768 images (384 / 24 / 4 rows of
+   levels w / h / hh), 2 EM iterations of 3 epochs, the three-level M-step
+   and artifact, ``init_codec`` and a decode on it, and both kernels at
+   B = 384, P = 4,096.
 
 Cuts (depth only; every CIFAR phase runs CIFAR's full widths, R = 500
 rows, all 125 groups coded): ENCODE_* for the reference schedule; ADAPTIVE
 and QUALITY for the presets (``recombiner_tpu_torch/cli/compress.py``);
 CUT_* for Kodak, audio, video and protein (full widths and geometry,
-every group of every level coded).
+every group of every level coded); TRAIN_* for prior training (the
+reference's 550 EM iterations of 200 / 100 epochs cut to 4 of 20 / 10 at
+CIFAR's full widths and R = 2,000).
 
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -114,8 +148,11 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -125,6 +162,8 @@ import numpy as np
 import torch
 
 from recombiner_tpu_torch.cli import decompress as decompress_cli
+from recombiner_tpu_torch.cli import rd_sweep
+from recombiner_tpu_torch.cli import train as train_cli
 from recombiner_tpu_torch.cli.compress import resume_from
 from recombiner_tpu_torch.coding import encoder, progressive
 from recombiner_tpu_torch.coding import decoder
@@ -134,11 +173,14 @@ from recombiner_tpu_torch.coords import grid_fourier_features
 from recombiner_tpu_torch.data import export, protein, synthetic
 from recombiner_tpu_torch.data.pipeline import points_from_data
 from recombiner_tpu_torch.device import exact_f32
-from recombiner_tpu_torch.io import encode_state
+from recombiner_tpu_torch.data.load_data import load_training_set
+from recombiner_tpu_torch.device import deterministic_convs
+from recombiner_tpu_torch.io import encode_state, train_state
 from recombiner_tpu_torch.io.bitstream import read_bitstream, write_bitstream
 from recombiner_tpu_torch.io.checkpoint import (
     LevelArtifact,
     PriorArtifact,
+    load_prior_artifact,
     prior_fingerprint,
     save_prior_artifact,
 )
@@ -149,6 +191,8 @@ from recombiner_tpu_torch.models.inr import inr_forward
 from recombiner_tpu_torch.models.upsample import apply_upsample, apply_upsample_phased
 from recombiner_tpu_torch.ops import _build
 from recombiner_tpu_torch.ops import fused_inr
+from recombiner_tpu_torch.priors import trainer
+from recombiner_tpu_torch.priors.artifact import build_prior_artifact
 from recombiner_tpu_torch.priors.grouping import compute_grouping
 
 N_ROWS = 500  # bench.py's CIFAR geometry (N_IMAGES), the reference's cifar test batch
@@ -987,6 +1031,466 @@ def determinism(codec, state0, X, Y, cfg, seed: int) -> dict:
         encoder.deterministic_convs = restricted
     return out
 
+# ------------------------------------------------------------ prior training
+
+# The prior-training phases: CIFAR at the README's cli.train size, R =
+# 2,000, cut in depth only (the reference's 550 EM iterations of 200 / 100
+# epochs -> 4 iterations of 20 / 10); rd_sweep with the same cut and its
+# encode cut as ENCODE_*'s (10 phase-1 epochs, 1-epoch finetunes); Kodak's
+# three levels at 2 iterations of 3 epochs.
+TRAIN_ROWS = 2000
+TRAIN_EM = ["--n_em_iters", "4", "--first_epochs", "20", "--later_epochs", "10"]
+TRAIN_CHUNKS = trainer.em_chunks(4, 10, 20, 10)
+TRAIN_BITRATE = 2.0
+KODAK_TRAIN_IMAGES = 4
+KODAK_TRAIN = KODAK
+# a decoded reconstruction, card against CPU: the tests' DECODE_TOL
+DECODE_TOL = dict(atol=3e-5, rtol=1e-5)
+# a trained state, card against CPU from one state and one noise draw: the
+# tests' bound (tests/test_torch_trainer.py::_state_close): every leaf's
+# difference within 1e-6 of its norm plus 1e-2 of the norm of the change
+# the epoch made, every element within 2 lr (one normalised Adam step each
+# way); the epoch's mse and KL at rtol 1e-4
+TRAIN_LR = 2e-4
+# kernel-name words of each part of a training epoch's device time, first
+# match wins: cuDNN's convolutions include its FFT ones (fft2d_* and their
+# complex "cf32" GEMMs); the real f32 GEMMs left are cuBLAS's, the
+# A-transforms and their gradients
+EPOCH_PARTS = (("siren_bwd", ("siren_bwd",)), ("siren_fwd", ("siren_fwd",)),
+               ("conv stack (cuDNN)", CONV_KERNEL_WORDS + ("cf32",)),
+               ("cuBLAS GEMMs (A-transforms and their gradients)", ("gemm", "gemv")))
+OTHER_PART = "elementwise, reductions and copies (sampling, KL, Adam, layouts)"
+
+
+def epoch_parts(by_kernel: dict) -> dict:
+    """Device microseconds of each part of an epoch (``EPOCH_PARTS``)."""
+    parts = {name: 0.0 for name, _ in EPOCH_PARTS}
+    parts[OTHER_PART] = 0.0
+    for kname, us in by_kernel.items():
+        low = kname.lower()
+        part = next((name for name, words in EPOCH_PARTS if any(w in low for w in words)),
+                    OTHER_PART)
+        parts[part] += us
+    return parts
+
+
+def epoch_pieces(state, cfg, gen) -> dict:
+    """Device milliseconds by CUDA events of the pieces of a training epoch
+    that the profiler's kernel names do not separate, each on its own at
+    the epoch's shapes (exact f32, deterministic cuDNN): the conv stack's
+    forward, its data gradient (forward and input gradient, less the
+    forward) and its weight gradient (forward and every gradient, less the
+    forward and input gradient); the A-transforms' forward and gradients;
+    and Adam's step over every leaf."""
+    R = state.w.loc.shape[0]
+    noise = trainer.draw_noise(state, cfg, 1, gen)
+    lpe = (state.lpe.loc[:, None] + state.lpe.scale[:, None] * noise[0]).detach()
+    up = {c: {k: v.detach().requires_grad_() for k, v in d.items()} for c, d in state.up.items()}
+    weights = [v for d in up.values() for v in d.values()]
+    lpe_g = lpe.clone().requires_grad_()
+    dy = torch.randn(R, 1, cfg.n_pixels, cfg.upsample_out, generator=gen, device="cuda")
+    h_w = (state.w.loc + state.w.scale * noise[1][:, 0]).detach().requires_grad_()
+    A = [a.detach().requires_grad_() for a in state.A]
+    dtheta = torch.randn(R, cfg.n_inr_params, generator=gen, device="cuda")
+    with exact_f32(), deterministic_convs():
+        def stack_grads(of):
+            return torch.autograd.grad(mappings.lpe_to_pe(up, lpe_g, cfg), of, dy)
+
+        with torch.no_grad():
+            t_fwd = cuda_ms(lambda: mappings.lpe_to_pe(up, lpe, cfg), 10)
+            t_a = cuda_ms(lambda: fused_inr.materialize_theta(h_w, A, cfg), 10)
+        t_in = cuda_ms(lambda: stack_grads([lpe_g]), 10)
+        t_all = cuda_ms(lambda: stack_grads([lpe_g, *weights]), 10)
+        t_a_all = cuda_ms(lambda: torch.autograd.grad(
+            fused_inr.materialize_theta(h_w, A, cfg), [h_w, *A], dtheta), 10)
+    leaves = [t.clone() for t in state.leaves()]
+    grads = [torch.randn(t.shape, generator=gen, device="cuda") for t in leaves]
+    adam0 = encoder.adam_init(leaves)
+    adam_ms = cuda_ms(lambda: encoder.adam_step(leaves, grads, adam0, TRAIN_LR), 10)
+    return {"conv forward": t_fwd, "conv data gradient": t_in - t_fwd,
+            "conv weight gradient": t_all - t_in, "A-transforms forward": t_a,
+            "A-transforms gradients": t_a_all - t_a, "Adam step": adam_ms}
+
+
+def states_close(got: trainer.PriorState, want: trainer.PriorState,
+                 start: trainer.PriorState, steps: int) -> float:
+    """Raises unless ``got`` is within the tests' trained-state bound of
+    ``want`` (both trained from ``start`` for ``steps`` Adam steps at
+    TRAIN_LR); returns the largest leaf's difference norm over its bound."""
+    worst = 0.0
+    for g, w, w0 in zip(got.leaves(), want.leaves(), start.leaves(), strict=True):
+        g, w, w0 = (t.detach().double().cpu() for t in (g, w, w0))
+        bound = 1e-6 * w.norm().item() + 1e-2 * (w - w0).norm().item()
+        gap = (g - w).norm().item()
+        worst = max(worst, gap / bound)
+        if gap > bound or (g - w).abs().max().item() > (1e-6 * w.abs().max().item()
+                                                        + 2 * TRAIN_LR * steps):
+            raise AssertionError(f"trained state leaf {tuple(w.shape)}: difference norm "
+                                 f"{gap:.3e} against its bound {bound:.3e}")
+    return worst
+
+
+class ProgressFiltered(io.TextIOBase):
+    """A text stream that passes lines on to ``out`` but compress's
+    per-group progress lines ("[w] 12/554"), which it counts."""
+
+    LINE = re.compile(r"^\[(w|h|hh)\] \d+/\d+$")
+
+    def __init__(self, out):
+        self.out, self.buf, self.dropped = out, "", 0
+
+    def write(self, text: str) -> int:
+        *lines, self.buf = (self.buf + text).split("\n")
+        for line in lines:
+            if self.LINE.match(line):
+                self.dropped += 1
+            else:
+                self.out.write(line + "\n")
+        return len(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def same_state(a: trainer.PriorState, b: trainer.PriorState) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.leaves(), b.leaves(), strict=True))
+
+
+@contextlib.contextmanager
+def replaced(module, name: str, fn):
+    """``module.name`` replaced by ``fn(original)`` for the duration."""
+    saved = getattr(module, name)
+    setattr(module, name, fn(saved))
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def train_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
+    """Prior training on the card: cli.train at CIFAR R = 2,000 on PNGs from
+    ``seed``, the trained prior decoded card against CPU; an epoch's time,
+    profile and peak memory; determinism (two runs, a save and load, card
+    against CPU); cli.rd_sweep (train, encode every group, a crash after
+    the first train-state snapshot resumed twice); Kodak's three levels."""
+    cfg = CIFAR
+    out = {}
+    tmp_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        with phase("CIFAR train"):
+            train_dir = os.path.join(tmp_root, "train")
+            os.makedirs(train_dir)
+            t0 = time.perf_counter()
+            for i, img in enumerate(smooth_images(TRAIN_ROWS, seed + 7)):
+                export.write_png(os.path.join(train_dir, f"{i:04d}.png"), img)
+            png_s = time.perf_counter() - t0
+            saving = os.path.join(tmp_root, "prior")
+            zero_launches()
+            t0 = time.perf_counter()
+            res = train_cli.main(["--train_dir", train_dir, "--dataset", "cifar",
+                                  "--train_size", str(TRAIN_ROWS), "--max_bitrate",
+                                  str(TRAIN_BITRATE), "--saving_dir", saving,
+                                  "--seed", str(seed), *TRAIN_EM])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            epochs = sum(n * e for n, e in TRAIN_CHUNKS)
+            launched = dict(fused_inr.launches)
+            print(f"kernel launches in cli.train: {launched}; epochs run {epochs}, log forwards "
+                  f"{len(TRAIN_CHUNKS)} (chunks {TRAIN_CHUNKS})")
+            if (launched["siren_bwd"] != epochs
+                    or launched["siren_fwd"] != epochs + len(TRAIN_CHUNKS)):
+                raise AssertionError("cli.train did not launch siren_bwd once per epoch and "
+                                     "siren_fwd once per epoch and once per log forward")
+            stem = f"train_size_{TRAIN_ROWS}_max_bitrate={TRAIN_BITRATE:.3f}"
+            art = load_prior_artifact(os.path.join(saving, f"PRIOR_{stem}.npz"))
+            g = art.w.grouping
+            gmax = decoder._round_up(g.max_group_size)
+            print(f"cli.train CIFAR R={TRAIN_ROWS} ({png_s:.2f} s to write the PNGs): wall "
+                  f"{train_s:.3f} s; last record {res.elbo_history[-1]}; artifact "
+                  f"{g.n_groups} groups, largest {g.max_group_size} (Gmax {gmax}), "
+                  f"{cfg.bitrate_of_groups(g.n_groups):.4f} bpp at target {TRAIN_BITRATE} "
+                  f"[{card}]")
+            codec, _ = init_codec(art, 8)
+            rng = np.random.default_rng(seed)
+            idx = {"w": rng.integers(0, 2**cfg.bits_per_group, (8, g.n_groups))}
+            feats = grid_fourier_features(cfg.pixel_sizes, cfg.fourier_dim)
+            X8 = np.ascontiguousarray(np.broadcast_to(feats, (8, *feats.shape)))
+            y = decode(codec, idx, X8, cfg).cpu()
+            y_cpu = decode(init_codec(art, 8, device="cpu")[0], idx, X8, cfg)
+            derr = (y - y_cpu).abs().max().item()
+            print(f"trained prior decode, 8 rows, card vs CPU: max abs diff {derr:.3e} (atol "
+                  f"{DECODE_TOL['atol']}, rtol {DECODE_TOL['rtol']})")
+            torch.testing.assert_close(y, y_cpu, **DECODE_TOL)
+            out["cifar_train"] = {"wall_s": train_s, "groups": g.n_groups, "gmax": gmax,
+                                  "launches": launched, "decode_err": derr}
+            del codec
+
+        X_np, Y_np = load_training_set(train_dir, cfg, seed, TRAIN_ROWS)
+        X, Y = torch.from_numpy(X_np).cuda(), torch.from_numpy(Y_np).cuda()
+        state, priors, beta = res.state, res.priors, res.kl_beta
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+
+        def sgd(n, st=state, source=gen):
+            return trainer.sgd_epochs(st, X, Y, priors, beta, source, cfg=cfg, n_epochs=n,
+                                      lr=TRAIN_LR)
+
+        with phase("train timing"):
+            sgd(2)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            sgd(1)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            sgd(10)
+            torch.cuda.synchronize()
+            epoch_s = (time.perf_counter() - t0) / 10
+            busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: sgd(10), 1)
+            parts = epoch_parts(by_kernel)
+            pieces = epoch_pieces(state, cfg, gen)
+            device_ms = busy_us / 1e4
+            print(f"train_epoch_s {epoch_s:.6f} (CIFAR R={TRAIN_ROWS}, S=1, mean of 10 warm "
+                  f"epochs); peak device memory of an epoch {peak / 2**20:.1f} MiB "
+                  f"({base / 2**20:.1f} MiB allocated before it) [{card}]")
+            print(f"10 epochs under the profiler: {device_ms:.3f} ms device time per epoch in "
+                  f"{wall_us / 1e4:.3f} ms wall, idle share {1 - busy_us / wall_us:.4f}; by "
+                  "kernel name:")
+            for name, us in parts.items():
+                print(f"  {us / 1e4:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name}")
+            print("the pieces on their own by CUDA events, against the epoch's device time:")
+            for name, ms_ in pieces.items():
+                print(f"  {ms_:8.4f} ms {100 * ms_ / device_ms:5.1f}%  {name}")
+            for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
+                print(f"  {us / 1e4:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name[:100]}")
+            with exact_f32():
+                fwd, bwd = kernel_checks(art, TRAIN_ROWS, 1, gen, card, errs, bwd_errs,
+                                         "CIFAR train")
+            out["timing"] = {"train_epoch_s": epoch_s, "peak_mib": peak / 2**20,
+                             "device_ms": busy_us / 1e4, "idle": 1 - busy_us / wall_us,
+                             "parts_ms": {k: v / 1e4 for k, v in parts.items()},
+                             "pieces_ms": pieces, "siren_fwd": fwd, "siren_bwd": bwd}
+
+        with phase("train determinism"):
+            lo, hi = cfg.bits_budget(TRAIN_BITRATE)
+
+            def em(st, pr, b, g, n=2):
+                return trainer.em_iters(st, X, Y, pr, b, g, lo, hi, cfg=cfg, n_iters=n,
+                                        n_epochs=3, lr=TRAIN_LR)
+
+            g_state = gen.get_state()
+            runs = []
+            for _ in range(2):
+                gen.set_state(g_state)
+                runs.append(em(state, priors, beta, gen))
+            equal_runs = (same_state(runs[0][0], runs[1][0])
+                          and all(torch.equal(a, b) for a, b in zip(runs[0][1].leaves(),
+                                                                      runs[1][1].leaves()))
+                          and runs[0][2] == runs[1][2])
+
+            def weight_grads():
+                leaves = [t.detach().clone().requires_grad_() for t in state.leaves()]
+                s = state.with_leaves(leaves)
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                with exact_f32(), deterministic_convs():
+                    y_hat = trainer.forward(s, X, cfg, generator=g)[:, 0]
+                    loss = (torch.mean((y_hat - Y) ** 2) * TRAIN_ROWS
+                            + beta * trainer.total_kl(s, priors))
+                    return torch.autograd.grad(loss, leaves)
+
+            ga, gb = weight_grads(), weight_grads()
+            equal_grads = all(torch.equal(a, b) for a, b in zip(ga, gb))
+            n_post = 2 * len(state.posteriors())
+            del ga, gb
+            st1, pr1, beta1, _ = runs[0]
+            path = os.path.join(tmp_root, "ts.npz")
+            train_state.save_train_state(path, st1, pr1, float(beta1), 2)
+            st_l, pr_l, beta_l, done_l, _ = train_state.load_train_state(path, cfg, "cuda")
+            gen.set_state(g_state)
+            cont_mem = em(st1, pr1, beta1, gen, 1)
+            gen.set_state(g_state)
+            cont_disk = em(st_l, pr_l, beta_l, gen, 1)
+            equal_resume = (same_state(cont_mem[0], cont_disk[0]) and cont_mem[2] == cont_disk[2]
+                            and done_l == 2)
+            print(f"two 2-iteration em_iters runs (3 epochs each) from one state and generator "
+                  f"state, R={TRAIN_ROWS}: bitwise equal {equal_runs}; the loss's gradients "
+                  f"twice, the {len(state.leaves()) - n_post} A and conv weight and bias leaves "
+                  f"included: bitwise equal {equal_grads}; a train state saved, loaded and "
+                  f"continued vs continued in memory: bitwise equal {equal_resume} [{card}]")
+            if not (equal_runs and equal_grads and equal_resume):
+                raise AssertionError("training on the card does not repeat bit for bit")
+            del runs, cont_mem, cont_disk, st_l, pr_l
+            # one epoch at R = 64 from one state and one noise draw, card vs CPU
+            rows = slice(0, 64)
+            small = trainer.PriorState(
+                w=trainer.Gaussian(state.w.loc[rows], state.w.log_scale[rows]),
+                lpe=trainer.Gaussian(state.lpe.loc[rows], state.lpe.log_scale[rows]),
+                h=None, hh=None, A=state.A, up=state.up)
+            noise = trainer.draw_noise(small, cfg, 1, torch.Generator(device="cuda")
+                                       .manual_seed(seed))
+            small_cpu, pr_cpu = small.to("cpu"), priors.to("cpu")
+            card_out = trainer.sgd_epochs(small, X[rows], Y[rows], priors, beta, lambda: noise,
+                                          cfg=cfg, n_epochs=1, lr=TRAIN_LR)
+            cpu_out = trainer.sgd_epochs(small_cpu, torch.from_numpy(X_np[rows]),
+                                         torch.from_numpy(Y_np[rows]), pr_cpu, beta,
+                                         lambda: [n.cpu() for n in noise], cfg=cfg,
+                                         n_epochs=1, lr=TRAIN_LR)
+            worst = states_close(card_out[0], cpu_out[0], small_cpu, 1)
+            m_err = abs(card_out[1].mse.item() / cpu_out[1].mse.item() - 1)
+            k_err = abs(card_out[1].kl.item() / cpu_out[1].kl.item() - 1)
+            print(f"one epoch at R=64 from one state and one noise draw, card vs CPU: mse "
+                  f"relative diff {m_err:.3e}, KL {k_err:.3e} (rtol 1e-4); every leaf within "
+                  f"{worst:.3f} of its bound (1e-6 of its norm + 1e-2 of the change's, every "
+                  f"element within 2 lr) [{card}]")
+            if m_err > 1e-4 or k_err > 1e-4:
+                raise AssertionError("one epoch on the card differs from the CPU's")
+            out["determinism"] = {"runs": equal_runs, "grads": equal_grads,
+                                  "resume": equal_resume, "card_vs_cpu_of_bound": worst,
+                                  "mse_rel": m_err, "kl_rel": k_err}
+
+        with phase("rd_sweep"):
+            got = {}
+
+            def capture_codec(f):
+                def wrapped(art_, *a, **kw):
+                    got["art"] = art_
+                    return f(art_, *a, **kw)
+                return wrapped
+
+            def capture_compress(f):
+                def wrapped(codec_, state_, Xte, Yte, cfg_, *a, **kw):
+                    got.update(codec=codec_, X=Xte, res=f(codec_, state_, Xte, Yte, cfg_, *a, **kw))
+                    return got["res"]
+                return wrapped
+
+            sweep = ["--dataset", "cifar", "--synthetic", str(TRAIN_ROWS), "--n_test",
+                     str(N_ROWS), "--bitrates", str(TRAIN_BITRATE), *TRAIN_EM,
+                     "--n_encode_epochs", "10", "--finetune_epochs", "1", "--seed", str(seed),
+                     "--out", os.path.join(tmp_root, "rd.json")]
+            zero_launches()
+            t0 = time.perf_counter()
+            quiet = ProgressFiltered(sys.stdout)
+            with replaced(rd_sweep, "init_codec", capture_codec), \
+                    replaced(rd_sweep, "compress", capture_compress), \
+                    contextlib.redirect_stdout(quiet):
+                (point,) = rd_sweep.main(sweep + [
+                    "--train_state_dir", os.path.join(tmp_root, "ts_sweep"),
+                    "--state_dir", os.path.join(tmp_root, "enc")])
+            torch.cuda.synchronize()
+            sweep_s = time.perf_counter() - t0
+            res_e = got["res"]
+            launched_sweep = dict(fused_inr.launches)
+            t = res_e.timings
+            n_ep = epochs + t["phase1_epochs"] + t["finetune_epochs"]
+            print(f"({quiet.dropped} per-group progress lines of the encode left out)")
+            print(f"kernel launches in rd_sweep: {launched_sweep}; epochs {n_ep} (training "
+                  f"{epochs}, encode {t['phase1_epochs']} + {t['finetune_epochs']})")
+            if launched_sweep["siren_bwd"] != n_ep:
+                raise AssertionError("rd_sweep did not launch siren_bwd once per epoch")
+            if not res_e.state.w.compressed.all():
+                raise AssertionError("rd_sweep's encode left groups uncoded")
+            print(f"rd_sweep CIFAR: trained on {TRAIN_ROWS}, encoded {point['n_rows']} rows, "
+                  f"{point['n_groups']['w']} groups, all coded; wall {sweep_s:.3f} s (encode "
+                  f"optimize {t['optimize_s']:.3f} s, code {t['code_s']:.3f} s); PSNR "
+                  f"{point['distortion_mean']:.4f} dB @ {point['actual_bitrate']:.4f} bpp "
+                  f"[{card}]")
+            check_bitstream(got["codec"], res_e, torch.as_tensor(got["X"]).cuda(), cfg,
+                            got["art"], "rd_sweep encode")
+            # a crash after the first train-state snapshot, relaunched twice
+            crash = sweep + ["--skip_encode", "--train_state_dir",
+                             os.path.join(tmp_root, "ts_crash")]
+            saved = {}
+
+            def crashing(f):
+                def wrapped(path_, *a, **kw):
+                    f(path_, *a, **kw)
+                    saved["controller"] = dict(kw["controller"])
+                    raise Crash("train state")
+                return wrapped
+
+            with replaced(train_state, "save_train_state", crashing):
+                try:
+                    rd_sweep.main(crash)
+                    raise AssertionError("rd_sweep took no train-state snapshot")
+                except Crash:
+                    pass
+            snap = os.path.join(tmp_root, "ts_crash", f"train_state_cifar_{TRAIN_BITRATE:g}.npz")
+            passed, finals = [], []
+
+            def watching(f):
+                def wrapped(*a, **kw):
+                    passed.append((kw["controller"], kw["em_iter_offset"]))
+                    return f(*a, **kw)
+                return wrapped
+
+            with replaced(trainer, "em_train", watching):
+                for k in (1, 2):
+                    ts = os.path.join(tmp_root, f"ts_re{k}")
+                    os.makedirs(ts)
+                    shutil.copy(snap, ts)
+                    rd_sweep.main(sweep + ["--skip_encode", "--train_state_dir", ts,
+                                           "--save_prior_dir", os.path.join(tmp_root, f"p{k}")])
+                    finals.append(train_state.load_train_state(
+                        os.path.join(ts, os.path.basename(snap)), cfg, "cuda"))
+            prior_name = f"PRIOR_rd_cifar_bitrate={TRAIN_BITRATE:g}.npz"
+            arts = [np.load(os.path.join(tmp_root, f"p{k}", prior_name)) for k in (1, 2)]
+            equal_art = all(np.array_equal(arts[0][f], arts[1][f]) for f in arts[0].files)
+            equal_state = (same_state(finals[0][0], finals[1][0])
+                           and finals[0][2:] == finals[1][2:])
+            restored = passed == [(saved["controller"], 1)] * 2
+            print(f"rd_sweep crashed after its first train-state snapshot (controller "
+                  f"{saved['controller']}), relaunched twice from it: controller restored "
+                  f"{restored}; final train states (EM {finals[0][3]}) bitwise equal "
+                  f"{equal_state}; saved priors bitwise equal {equal_art} [{card}]")
+            if not (restored and equal_state and equal_art):
+                raise AssertionError("the relaunched rd_sweeps differ, or the controller was not "
+                                     "restored")
+            out["rd_sweep"] = {"wall_s": sweep_s, "point": point, "launches": launched_sweep}
+            del got, finals, arts
+
+        with phase("Kodak train"):
+            kcfg = KODAK_TRAIN
+            hw = tuple(n * p for n, p in zip(kcfg.patch_nums, kcfg.pixel_sizes))
+            Xk, Yk = points_from_data(list(smooth_images(KODAK_TRAIN_IMAGES, seed + 9, hw)),
+                                      kcfg)
+            Xk, Yk = torch.from_numpy(Xk).cuda(), torch.from_numpy(Yk).cuda()
+            per_image = kcfg.patches_per_datapoint
+            zero_launches()
+            t0 = time.perf_counter()
+            res_k = trainer.em_train(torch.Generator(device="cuda").manual_seed(seed), kcfg, Xk,
+                                     Yk, 0.5, n_em_iters=2, first_epochs=3, later_epochs=3)
+            torch.cuda.synchronize()
+            kodak_s = time.perf_counter() - t0
+            launched_k = dict(fused_inr.launches)
+            rows = {n: getattr(res_k.state, n).loc.shape[0] for n in ("w", "h", "hh")}
+            R = KODAK_TRAIN_IMAGES * per_image
+            if launched_k["siren_bwd"] != 6 or rows != {"w": R, "h": kcfg.rows_level2(R),
+                                                        "hh": kcfg.rows_level3(R)}:
+                raise AssertionError(f"Kodak training: rows {rows}, launches {launched_k}")
+            art_k = build_prior_artifact(res_k.state, res_k.priors, res_k.kl_beta, kcfg,
+                                         codebook_seed=seed)
+            codec_k, state_k = init_codec(art_k, per_image)
+            groups = {n: codec_k.meta(n).n_groups for n in codec_k.level_names}
+            idx = {n: np.random.default_rng(seed).integers(
+                0, 2**kcfg.bits_per_group, (state_k.level(n).q.loc.shape[0], groups[n]))
+                for n in codec_k.level_names}
+            y_k = decode(codec_k, idx, Xk[:per_image], kcfg)
+            if not torch.isfinite(y_k).all() or any(p is None for p in res_k.priors.leaves()):
+                raise AssertionError("the Kodak prior does not decode")
+            print(f"Kodak em_train: {KODAK_TRAIN_IMAGES} images, rows {rows}, 2 EM iterations x 3 "
+                  f"epochs in {kodak_s:.3f} s (launches {launched_k}); three-level M-step and "
+                  f"artifact, groups {groups}; init_codec and a decode of one image on the card "
+                  f"[{card}]")
+            with exact_f32():
+                fwd_k, bwd_k = kernel_checks(art_k, R, 1, gen, card, errs, bwd_errs,
+                                             "Kodak train")
+            out["kodak_train"] = {"wall_s": kodak_s, "groups": groups, "launches": launched_k,
+                                  "siren_fwd": fwd_k, "siren_bwd": bwd_k}
+    finally:
+        shutil.rmtree(tmp_root, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1365,6 +1869,11 @@ def main(argv=None) -> int:
     kodak = kodak_phases(args.seed, card, errs, bwd_errs)
     modalities = modality_phases(args.seed, card, errs, bwd_errs)
     paths = {"kodak": kodak, **modalities}
+    train = train_phases(args.seed, card, errs, bwd_errs)
+    train_launches = {"cifar_train": train["cifar_train"]["launches"],
+                      "rd_sweep": train["rd_sweep"]["launches"],
+                      "kodak_train": train["kodak_train"]["launches"]}
+    train_shapes = {"cifar_train": train["timing"], "kodak_train": train["kodak_train"]}
 
     kernels = [{
         "name": "siren_fwd",
@@ -1378,7 +1887,8 @@ def main(argv=None) -> int:
                              "adaptive_encode": launched_ad["siren_fwd"],
                              "quality_encode": launched_q["siren_fwd"],
                              **{p: n["siren_fwd"] for c in paths.values()
-                                for p, n in c["launches"].items()}},
+                                for p, n in c["launches"].items()},
+                             **{p: n["siren_fwd"] for p, n in train_launches.items()}},
         "max_abs_err": max(errs),
         "ms": ms[1],
         "ms_8_samples_per_block": ms[8],
@@ -1389,6 +1899,7 @@ def main(argv=None) -> int:
         "fp32_fma_bound_ms": fma_bound_ms,
         "library_ms": None,
         **{name: c["siren_fwd"] for name, c in paths.items()},
+        **{name: c["siren_fwd"] for name, c in train_shapes.items()},
     }, {
         "name": "siren_bwd",
         "route": "cuda",
@@ -1400,7 +1911,8 @@ def main(argv=None) -> int:
                              "adaptive_encode": launched_ad["siren_bwd"],
                              "quality_encode": launched_q["siren_bwd"],
                              **{p: n["siren_bwd"] for c in paths.values()
-                                for p, n in c["launches"].items()}},
+                                for p, n in c["launches"].items()},
+                             **{p: n["siren_bwd"] for p, n in train_launches.items()}},
         "max_abs_err": max(bwd_errs),
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
@@ -1410,6 +1922,7 @@ def main(argv=None) -> int:
         "fp32_fma_bound_ms": bwd_fma_bound_ms,
         "library_ms": None,
         **{name: c["siren_bwd"] for name, c in paths.items()},
+        **{name: c["siren_bwd"] for name, c in train_shapes.items()},
     }]
     print("kernels: siren_fwd (CUDA, replaces recombiner_tpu/ops/fused_inr.py::_fwd_kernel and "
           "recombiner_tpu/ops/pallas_inr.py::_kernel), held against siren_forward_reference "
@@ -1438,6 +1951,16 @@ def main(argv=None) -> int:
               + f", encode {e['wall_s']:.3f} s; decode {d['wall_ms']:.3f} ms wall, "
               f"{d['device_ms']:.3f} ms device, peak {d['peak_mib']:.1f} MiB; export "
               f"{c['export']['files']} {c['export']['kind']} files [{card}]")
+    tt, det = train["timing"], train["determinism"]
+    print(f"prior training (CIFAR R={TRAIN_ROWS}, S=1): train_epoch_s {tt['train_epoch_s']:.6f}, "
+          f"device {tt['device_ms']:.3f} ms per epoch, idle share {tt['idle']:.4f}, epoch peak "
+          f"memory {tt['peak_mib']:.1f} MiB; cli.train {train['cifar_train']['wall_s']:.3f} s, "
+          f"{train['cifar_train']['groups']} groups; rd_sweep {train['rd_sweep']['wall_s']:.3f} s, "
+          f"PSNR {train['rd_sweep']['point']['distortion_mean']:.4f} dB @ "
+          f"{train['rd_sweep']['point']['actual_bitrate']:.4f} bpp; Kodak em_train "
+          f"{train['kodak_train']['wall_s']:.3f} s; repeats, resume and the relaunched "
+          f"rd_sweeps bitwise equal, card vs CPU epoch within {det['card_vs_cpu_of_bound']:.3f} "
+          f"of its bound [{card}]")
     print(f"total: {time.perf_counter() - t_all:.2f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,6 @@
-"""Posterior scale transform (``recombiner_tpu/models/gaussian.py:20-22``),
-the diagonal Gaussian posterior it parameterises, and the Gaussian KL."""
+"""Posterior scale transform (``recombiner_tpu/models/gaussian.py:20-31``)
+and its inverse, the diagonal Gaussian posterior it parameterises, the
+naturally parameterised Gaussian of a prior, and the Gaussian KL."""
 
 from __future__ import annotations
 
@@ -17,6 +18,13 @@ def scale_transform(log_scale: torch.Tensor) -> torch.Tensor:
     return F.softplus(log_scale) / SCALE_DIV
 
 
+def inverse_scale_transform(scale: torch.Tensor) -> torch.Tensor:
+    """raw = log(exp(6 sigma) - 1), the inverse of ``scale_transform``, in the
+    stable form 6 sigma + log1p(-exp(-6 sigma))."""
+    s6 = SCALE_DIV * scale
+    return s6 + torch.log1p(-torch.exp(-s6))
+
+
 @dataclasses.dataclass
 class Gaussian:
     """Diagonal Gaussian with raw (pre-softplus) scale parameterisation."""
@@ -27,6 +35,15 @@ class Gaussian:
     @property
     def scale(self) -> torch.Tensor:
         return scale_transform(self.log_scale)
+
+
+@dataclasses.dataclass
+class NaturalGaussian:
+    """Diagonal Gaussian with direct (loc, scale) parameterisation: the
+    priors, whose scale the M-step produces in closed form."""
+
+    loc: torch.Tensor
+    scale: torch.Tensor
 
 
 def kl_gaussian(q_loc: torch.Tensor, q_scale: torch.Tensor, p_loc: torch.Tensor,

@@ -9,11 +9,24 @@ the last. This is the reference that the CUDA kernel
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from recombiner_tpu_torch.config import ModalityConfig
+
+
+def init_linear_transform(net_dims: Sequence[int], generator: Optional[torch.Generator] = None,
+                          device=None) -> List[torch.Tensor]:
+    """One learned square matrix per layer, (out * (in + 1),) squared, drawn
+    U(-1/d, 1/d) as ``recombiner_tpu/models/inr.py:42-50`` draws them (other
+    numbers from the same seed: the generators differ)."""
+    mats = []
+    for i in range(1, len(net_dims)):
+        d = net_dims[i] * (net_dims[i - 1] + 1)
+        mats.append(torch.empty(d, d, device=device).uniform_(-1.0 / d, 1.0 / d,
+                                                              generator=generator))
+    return mats
 
 
 def slice_layer(latents: torch.Tensor, layer_idx: int, cum_sizes: Sequence[int]) -> torch.Tensor:

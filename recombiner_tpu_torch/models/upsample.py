@@ -11,14 +11,16 @@ layout is the JAX package's channel-last (N, *spatial, C); inside, the
 stack runs channel-first with (O, I, *k) weights
 (``recombiner_tpu_torch/io/convert.py`` turns the artifact's (*k, I, O)
 weights round). The tests hold both forms to both JAX versions;
-``mappings`` calls one of them.
+``mappings`` calls one of them. Both are differentiable in the input and
+in every weight and bias, as prior training needs
+(``init_upsample_params`` draws the initial ones).
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
-from typing import Dict, Sequence, Union, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,6 +29,25 @@ import torch.nn.functional as F
 ScaleFactor = Union[int, Tuple[int, ...]]
 _KERNELS = (5, 3, 3)
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def init_upsample_params(data_dim: int, latent_dim: int = 128, hidden: int = 64,
+                         out: int = 16, generator: Optional[torch.Generator] = None,
+                         device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The stack's initial parameters, {conv{i}: {w (O, I, *k), b}}: weights
+    and biases U(-sqrt(k), sqrt(k)) with k = 1 / (fan_in * prod(kernel)), the
+    distribution of ``recombiner_tpu/models/upsample.py:38-61`` (torch's
+    conv default)."""
+    chans = [(latent_dim, hidden), (hidden, hidden), (hidden, out)]
+    params = {}
+    for i, ((cin, cout), k) in enumerate(zip(chans, _KERNELS)):
+        bound = 1.0 / np.sqrt(cin * k**data_dim)
+        w = torch.empty(cout, cin, *(k,) * data_dim, device=device)
+        params[f"conv{i}"] = {
+            "w": w.uniform_(-bound, bound, generator=generator),
+            "b": torch.empty(cout, device=device).uniform_(-bound, bound, generator=generator),
+        }
+    return params
 
 
 def _factors(f: ScaleFactor, d: int) -> Tuple[int, ...]:
@@ -130,7 +151,10 @@ def _phased_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
     (an f32 product, which the caller's exact_f32 keeps exact on the
     card). Output channels are cout-major, phase-minor (the JAX rewrite
     orders them phase-major and transposes, ``phase_upsample.py:86-118``:
-    the same interleave)."""
+    the same interleave). The bias is broadcast over the phases with
+    ``expand``, whose gradient is an ordered sum (``repeat_interleave``'s
+    would be an ``index_add``, atomic on CUDA), so a training epoch
+    repeats bit for bit."""
     d = len(factors)
     # a size-preserving conv (2p = k - 1) pads its source grid alike on both sides
     if 2 * p != k - 1:
@@ -143,7 +167,8 @@ def _phased_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
     kp = _phase_matrix_on(k, factors, p, w.device).to(taps.dtype) @ taps  # (ext f, cin*cout)
     kp = kp.reshape(*ext, f_prod, cin, cout).permute(d + 2, d, d + 1, *range(d))
     kp = kp.reshape(cout * f_prod, cin, *ext)
-    y = _conv(d)(x, kp, b.repeat_interleave(f_prod), padding=tuple(lo for lo, _ in pads))
+    bias = b[:, None].expand(cout, f_prod).reshape(cout * f_prod)
+    y = _conv(d)(x, kp, bias, padding=tuple(lo for lo, _ in pads))
     if d == 2 and factors[0] == factors[1]:
         # the same values as _depth_to_space, but in the conv's channels-last
         # strides, which the next conv's algorithm and rounding depend on

@@ -1,5 +1,4 @@
-"""KL-based parameter grouping, a copy of ``recombiner_tpu/priors/grouping.py``
-(without ``grouping_from_posteriors``, which prior training uses).
+"""KL-based parameter grouping, a copy of ``recombiner_tpu/priors/grouping.py``.
 
 Parameters are shuffled with a fixed seed, then greedily bin-packed so each
 group's summed KL stays <= bits_per_group bits. The algorithm is
@@ -90,3 +89,16 @@ def compute_grouping(
         group_kls=group_kls,
         weights=kl_bits,
     )
+
+
+def grouping_from_posteriors(q_loc: np.ndarray, q_scale: np.ndarray, p_loc: np.ndarray,
+                             p_scale: np.ndarray, max_bits: float = 16.0) -> Grouping:
+    """Grouping from training-set posteriors against the prior: the mean KL
+    per parameter in bits over the training rows, in numpy on the inputs'
+    own dtype (f32 from a prior state), as
+    ``recombiner_tpu/priors/grouping.py:102-115`` computes it."""
+    var_ratio = (q_scale / p_scale) ** 2
+    t = ((q_loc - p_loc) / p_scale) ** 2
+    kl = 0.5 * (var_ratio + t - 1.0 - np.log(var_ratio))
+    kl_bits = kl.mean(axis=0) / np.log(2.0)
+    return compute_grouping(kl_bits, max_bits=max_bits)

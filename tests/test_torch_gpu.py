@@ -387,3 +387,62 @@ def test_3d_phase_stack_matches_plain_stack_on_card(cuda, factors, canvas):
     plain = apply_upsample(on_card, x.to(cuda), *args)
     torch.testing.assert_close(phase, plain, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(phase.cpu(), apply_upsample(up, x, *args), atol=1e-5, rtol=1e-5)
+
+
+def _train_setup(name, R, dev):
+    """A prior state of ``name`` with R rows on ``dev`` and on the CPU, its
+    M-step priors, synthetic data and one epoch's noise, all from seeds."""
+    from recombiner_tpu_torch.config import get_config
+    from recombiner_tpu_torch.data.synthetic import synthetic_dataset
+    from recombiner_tpu_torch.priors import trainer
+
+    cfg = get_config(name)
+    X, Y = (torch.from_numpy(a) for a in synthetic_dataset(cfg, R, seed=0))
+    st = trainer.init_prior_state(cfg, X.shape[0], torch.Generator().manual_seed(0), "cpu")
+    pr = trainer.m_step(st)
+    noise = trainer.draw_noise(st, cfg, 1, torch.Generator().manual_seed(1))
+    return cfg, trainer, (st, pr, X, Y, noise), (st.to(dev), pr.to(dev), X.to(dev), Y.to(dev),
+                                                 [n.to(dev) for n in noise])
+
+
+@pytest.mark.parametrize("name,R", [("tiny", 2), ("cifar", 8)])
+def test_training_epoch_on_card_matches_cpu(cuda, name, R):
+    """One sgd_epochs epoch from one state and one noise draw, on the card
+    (through both kernels) and on the CPU (their plain versions): the mse
+    and KL at rtol 1e-4, every leaf within the CPU tests' trained-state
+    bound (1e-6 of its norm plus 1e-2 of the norm of the change, every
+    element within 2 lr: tests/test_torch_trainer.py::_state_close)."""
+    cfg, trainer, cpu, card = _train_setup(name, R, cuda)
+    lr = 2e-4
+    outs = []
+    for st, pr, X, Y, noise in (cpu, card):
+        before = dict(fused_inr.launches)
+        outs.append(trainer.sgd_epochs(st, X, Y, pr, 1e-3, lambda: noise, cfg=cfg, n_epochs=1,
+                                       lr=lr))
+    assert fused_inr.launches["siren_bwd"] == before["siren_bwd"] + 1
+    (s_cpu, m_cpu), (s_card, m_card) = outs
+    assert m_card.mse.item() == pytest.approx(m_cpu.mse.item(), rel=1e-4)
+    assert m_card.kl.item() == pytest.approx(m_cpu.kl.item(), rel=1e-4)
+    for g, w, w0 in zip(s_card.leaves(), s_cpu.leaves(), cpu[0].leaves(), strict=True):
+        g, w, w0 = g.cpu().double(), w.double(), w0.double()
+        assert (g - w).norm() <= 1e-6 * w.norm() + 1e-2 * (w - w0).norm()
+        assert (g - w).abs().max() <= 1e-6 * w.abs().max() + 2 * lr
+
+
+def test_training_gradients_of_a_and_the_conv_stack_match_the_plain_chain(cuda, monkeypatch):
+    """The training loss's gradients with respect to every A matrix and every
+    conv weight and bias at CIFAR, R = 8: the SIREN chain through SirenMLP
+    (siren_fwd, siren_bwd) against autograd of the plain chain
+    (``models.inr.inr_forward``) on the card, at BWD_OF_MAX of the largest
+    entry."""
+    cfg, trainer, _, (st, pr, X, Y, noise) = _train_setup("cifar", 8, cuda)
+    grads = []
+    for fwd in (fused_inr.inr_forward_fused, inr_forward):
+        monkeypatch.setattr(trainer, "inr_forward_fused", fwd)
+        leaves = [t.clone().requires_grad_() for t in st.leaves()]
+        s = st.with_leaves(leaves)
+        y = trainer.forward(s, X, cfg, noise=noise)[:, 0]
+        loss = torch.mean((y - Y) ** 2) * 8 + 1e-3 * trainer.total_kl(s, pr)
+        grads.append(torch.autograd.grad(loss, leaves)[2 * len(st.posteriors()):])
+    for k, (got, want) in enumerate(zip(*grads, strict=True)):
+        _assert_close_of_max(got, want, f"mapping leaf {k}")

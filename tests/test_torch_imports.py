@@ -12,13 +12,14 @@ import recombiner_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "flax", "optax", "tqdm", "recombiner_tpu")
-# the encode slices' and the modalities slice's modules, named so that the
+# the encode, modalities and prior-training slices' modules, named so that the
 # check above cannot pass without them
 ENCODE_MODULES = ("coding.encoder", "coding.progressive", "coding.gumbel", "cli.compress",
                   "data.pipeline", "data.image", "data.load_data", "metrics", "io.atomic",
                   "io.encode_state", "io.checkpoint", "models.upsample", "models.mappings",
                   "utils.memory", "data.audio", "data.video", "data.protein", "data.synthetic",
-                  "data.export", "cli.decompress", "io.convert")
+                  "data.export", "cli.decompress", "io.convert", "priors.trainer",
+                  "priors.artifact", "io.train_state", "cli.train", "cli.rd_sweep")
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|tqdm|recombiner_tpu)\b", re.M)
 
 
