@@ -127,7 +127,25 @@ caught and passed over but the crashes phase 12 simulates):
 23. Kodak train: em_train on 4 smooth 512 x 768 images (384 / 24 / 4 rows of
    levels w / h / hh), 2 EM iterations of 3 epochs, the three-level M-step
    and artifact, ``init_codec`` and a decode on it, and both kernels at
-   B = 384, P = 4,096.
+   B = 384, P = 4,096;
+24. precision modes: epoch_s of CIFAR (S = 5 and S = 3), Kodak and video
+   and train_epoch_s, each under the ambient (TF32) and under
+   ``--precision highest`` (exact f32) in turns, with a CIFAR and a
+   training epoch's device time and conv share under each; the CIFAR
+   encode of phase 6 repeated at the ambient (bitwise equal) and run under
+   highest from the same generator state, both bitstreams decoded back,
+   their PSNR gap; audio's encode's TF32 flags at every product by part
+   (finetunes exact: the unrounded-PSNR auto); one epoch under
+   ``utils.tracing.trace`` (the trace names siren_bwd); ``blocked_inr``
+   against ``inr_forward_fused`` at R = 500, S = 5; the CIFAR decode check
+   repeated DECODE_REPEATS times on deterministic cuDNN algorithms and on
+   cuDNN's own choice, with the decode wall under each.
+
+Precision: everything a user runs (encodes, epochs, training) runs at the
+ambient TF32, as the CLIs' default does; A* scoring and decode are exact in
+every mode. Each check that holds the card against the CPU or an f64
+evaluation runs exact: the kernels and the conv stacks under ``exact_f32``,
+the training epoch at R = 64 under ``--precision highest``.
 
 Cuts (depth only; every CIFAR phase runs CIFAR's full widths, R = 500
 rows, all 125 groups coded): ENCODE_* for the reference schedule; ADAPTIVE
@@ -160,6 +178,7 @@ import time
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from recombiner_tpu_torch.cli import decompress as decompress_cli
 from recombiner_tpu_torch.cli import rd_sweep
@@ -172,9 +191,8 @@ from recombiner_tpu_torch.config import AUDIO, CIFAR, KODAK, PROTEIN, VIDEO
 from recombiner_tpu_torch.coords import grid_fourier_features
 from recombiner_tpu_torch.data import export, protein, synthetic
 from recombiner_tpu_torch.data.pipeline import points_from_data
-from recombiner_tpu_torch.device import exact_f32
 from recombiner_tpu_torch.data.load_data import load_training_set
-from recombiner_tpu_torch.device import deterministic_convs
+from recombiner_tpu_torch.device import deterministic_convs, exact_f32, precision
 from recombiner_tpu_torch.io import encode_state, train_state
 from recombiner_tpu_torch.io.bitstream import read_bitstream, write_bitstream
 from recombiner_tpu_torch.io.checkpoint import (
@@ -191,9 +209,11 @@ from recombiner_tpu_torch.models.inr import inr_forward
 from recombiner_tpu_torch.models.upsample import apply_upsample, apply_upsample_phased
 from recombiner_tpu_torch.ops import _build
 from recombiner_tpu_torch.ops import fused_inr
+from recombiner_tpu_torch.ops.blocked_inr import inr_forward_blocked
 from recombiner_tpu_torch.priors import trainer
 from recombiner_tpu_torch.priors.artifact import build_prior_artifact
 from recombiner_tpu_torch.priors.grouping import compute_grouping
+from recombiner_tpu_torch.utils import platform, tracing
 
 N_ROWS = 500  # bench.py's CIFAR geometry (N_IMAGES), the reference's cifar test batch
 SAMPLE_SIZE = 5  # cli/compress.py --sample_size default
@@ -483,6 +503,78 @@ def stack(fn):
         mappings.STACK = saved
 
 
+# The precision modes the smoke compares: the ambient (TF32 in cuBLAS and
+# cuDNN, what a user's run gets) and --precision highest (exact f32).
+MODES = ("ambient", "highest")
+
+
+def by_mode(fn) -> dict:
+    """``fn()`` under the ambient and under ``--precision highest``, in turns
+    ambient, highest, highest, ambient: {mode: [first, second]}."""
+    out = {m: [] for m in MODES}
+    for m in ("ambient", "highest", "highest", "ambient"):
+        with platform.ambient(None if m == "ambient" else m):
+            out[m].append(fn())
+    return out
+
+
+def mode_line(what: str, t: dict) -> str:
+    """One line of ``by_mode`` times in seconds, printed in ms: each mode's
+    two, and the ratio of the means (highest over ambient)."""
+    ratio = sum(t["highest"]) / sum(t["ambient"])
+    return (f"{what}: ambient (TF32) {1e3 * t['ambient'][0]:.4f} / "
+            f"{1e3 * t['ambient'][1]:.4f}, highest (exact) {1e3 * t['highest'][0]:.4f} / "
+            f"{1e3 * t['highest'][1]:.4f} ms; highest / ambient {ratio:.3f}")
+
+
+# the products whose precision the TF32 flags decide
+PRODUCTS = {"matmul", "__matmul__", "__rmatmul__", "mm", "bmm", "baddbmm", "addmm", "einsum",
+            "linear", "conv1d", "conv2d", "conv3d"}
+
+
+class FlagRecorder(TorchFunctionMode):
+    """Records (cuBLAS TF32, cuDNN TF32) at every product, under the label of
+    the innermost ``labelled`` function running."""
+
+    def __init__(self):
+        super().__init__()
+        self.label = [None]
+        self.seen: dict = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", None) in PRODUCTS:
+            self.seen.setdefault(self.label[-1], set()).add(
+                (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return func(*args, **(kwargs or {}))
+
+    def labelled(self, label: str, fn):
+        def wrapped(*a, **kw):
+            self.label.append(label)
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.label.pop()
+        return wrapped
+
+
+@contextlib.contextmanager
+def recording_flags(rec: FlagRecorder):
+    """``rec`` on, and the encode's parts labelled: phase 1
+    (``progressive.optimize``), the finetunes (``encoder.optimize``), the A*
+    scoring (``encoder.encode_step_level``) and the final decode."""
+    parts = [(progressive, "optimize", "phase 1"), (encoder, "optimize", "finetunes"),
+             (encoder, "encode_step_level", "A* scoring"), (progressive, "decode", "decode")]
+    saved = [getattr(m, n) for m, n, _ in parts]
+    for (m, n, label), f in zip(parts, saved):
+        setattr(m, n, rec.labelled(label, f))
+    try:
+        with rec:
+            yield
+    finally:
+        for (m, n, _), f in zip(parts, saved):
+            setattr(m, n, f)
+
+
 def as_f64(obj):
     """``obj`` (a codec, or anything of tensors in dataclasses, dicts and
     tuples) with every floating tensor in float64."""
@@ -738,7 +830,8 @@ def export_checks(art, idx, y: torch.Tensor, label: str) -> dict:
 
 def config_phases(cfg, data, seed: int, card: str, errs: list, bwd_errs: list, label: str,
                   small_bwd: bool = False, remat: bool = False, resume: bool = False,
-                  stack_check: bool = False, media: bool = False) -> dict:
+                  stack_check: bool = False, media: bool = False, modes: bool = False,
+                  flags: bool = False) -> dict:
     """The phases of one configuration at its full geometry (S = 5) on a
     random prior of its shapes from ``seed`` (``make_artifact``: no trained
     prior is read) and the datapoints ``data``: both kernels at its shapes,
@@ -747,9 +840,12 @@ def config_phases(cfg, data, seed: int, card: str, errs: list, bwd_errs: list, l
     the phase stack held against the plain one on the card; with ``remat``
     epochs with remat off, on, on, off (off twice: the epochs repeat bit for
     bit); with ``resume`` a crash at the first level-h snapshot resumed;
-    with ``media`` the export. Appends the kernels' disagreements to
-    ``errs`` and ``bwd_errs``; returns the numbers the kernels line and the
-    summary print."""
+    with ``media`` the export; with ``modes`` epoch_s under each precision
+    mode (``by_mode``); with ``flags`` the TF32 flags at every product of
+    the encode, by part (``FlagRecorder``). The encode and the epochs run
+    at the ambient precision, as a user's; decode is exact in every mode.
+    Appends the kernels' disagreements to ``errs`` and ``bwd_errs``;
+    returns the numbers the kernels line and the summary print."""
     S = SAMPLE_SIZE
     X_np, Y_np = points_from_data(data, cfg)
     R = X_np.shape[0]
@@ -865,9 +961,11 @@ def config_phases(cfg, data, seed: int, card: str, errs: list, bwd_errs: list, l
             del lpe, plain_pe, phase_pe
 
     with phase(f"{label} encode"):
+        rec = FlagRecorder()
         zero_launches()
         t0 = time.perf_counter()
-        res = compress(state0)
+        with recording_flags(rec) if flags else contextlib.nullcontext():
+            res = compress(state0)
         torch.cuda.synchronize()
         enc_s = time.perf_counter() - t0
         t = res.timings
@@ -902,13 +1000,11 @@ def config_phases(cfg, data, seed: int, card: str, errs: list, bwd_errs: list, l
               + f" (one encode_step, mean of 5) [{card}]")
         busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: epochs(1), 5)
         out["encode"]["idle"] = 1 - busy_us / wall_us
-        conv_us = sum(us for name, us in by_kernel.items()
-                      if any(k in name.lower() for k in CONV_KERNEL_WORDS))
         out["encode"]["device_ms"] = busy_us / 5e3
-        out["encode"]["conv_share"] = conv_us / busy_us
+        out["encode"]["conv_share"] = conv_share(by_kernel)
         print(f"{label} epoch under the profiler: {busy_us / 5e3:.3f} ms device time per epoch in "
               f"{wall_us / 5e3:.3f} ms wall, idle share {1 - busy_us / wall_us:.4f}; the conv "
-              f"stack's cuDNN kernels {100 * conv_us / busy_us:.1f}%")
+              f"stack's cuDNN kernels {100 * out['encode']['conv_share']:.1f}%")
         for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
             print(f"  {us / 5e3:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name[:100]}")
         stacks = {"plain": apply_upsample, "phase": apply_upsample_phased}
@@ -920,6 +1016,30 @@ def config_phases(cfg, data, seed: int, card: str, errs: list, bwd_errs: list, l
         print(f"{label} epoch_s by conv stack (order plain, phase, phase, plain): "
               + ", ".join(f"{n} {v[0]:.6f} / {v[1]:.6f}" for n, v in stack_s.items())
               + f"; lpe_to_pe uses {mappings.STACK.__name__} [{card}]")
+        if modes:
+            out["encode"]["epoch_s_by_mode"] = by_mode(lambda: wall_s(lambda: epochs(10), 1) / 10)
+            print(mode_line(f"{label} epoch_s (R={R}, S={S}, 10 warm epochs)",
+                            out["encode"]["epoch_s_by_mode"]) + f" [{card}]")
+            with platform.ambient("highest"):
+                busy_hi, wall_hi, by_kernel_hi = device_time_by_kernel(lambda: epochs(1), 5)
+            out["encode"]["highest"] = {"device_ms": busy_hi / 5e3, "idle": 1 - busy_hi / wall_hi,
+                                        "conv_share": conv_share(by_kernel_hi)}
+            print(f"{label} epoch under the profiler at --precision highest: "
+                  f"{busy_hi / 5e3:.3f} ms device time per epoch in {wall_hi / 5e3:.3f} ms wall, "
+                  f"idle share "
+                  f"{1 - busy_hi / wall_hi:.4f}; the conv stack's cuDNN kernels "
+                  f"{100 * conv_share(by_kernel_hi):.1f}% (ambient above: "
+                  f"{out['encode']['device_ms']:.3f} ms, {100 * out['encode']['conv_share']:.1f}%) "
+                  f"[{card}]")
+        if flags:
+            out["encode"]["flags"] = {k: sorted(v) for k, v in rec.seen.items()}
+            print(f"{label} encode, (cuBLAS TF32, cuDNN TF32) at every product, by part: "
+                  f"{out['encode']['flags']}")
+            want = {"phase 1": [(True, True)], "finetunes": [(False, False)],
+                    "A* scoring": [(False, False)], "decode": [(False, False)]}
+            if out["encode"]["flags"] != want:
+                raise AssertionError(f"{label}: the precision modes' auto did not run the "
+                                     f"finetunes exact and phase 1 at TF32: want {want}")
 
     if remat:
         with phase(f"{label} remat"):
@@ -988,9 +1108,9 @@ def kodak_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
     """The phases at KODAK's full geometry (levels w, h, hh of 96, 6 and 1
     rows, P = 4,096, S = 5) on one smooth 512 x 768 image: both kernels at
     P = 4,096 (and siren_bwd at B = 20), decode, encode, remat, and a crash
-    at level h resumed."""
+    at level h resumed; epoch_s under each precision mode."""
     return config_phases(KODAK, kodak_data(seed), seed, card, errs, bwd_errs, "Kodak",
-                         small_bwd=True, remat=True, resume=True)
+                         small_bwd=True, remat=True, resume=True, modes=True)
 
 
 def modality_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
@@ -999,12 +1119,15 @@ def modality_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
     (6, 4, 4) factor) and PROTEIN (1,000 chains, P = 96, one level) at their
     full geometry, each with the export; video also with the phase stack
     held against the plain one, remat off/on/on/off (the epochs repeat bit
-    for bit) and a crash at level h resumed."""
+    for bit), a crash at level h resumed and epoch_s under each precision
+    mode; audio's encode with its TF32 flags recorded (the per-modality
+    auto: exact finetunes)."""
     return {
         "audio": config_phases(AUDIO, audio_data(seed), seed, card, errs, bwd_errs, "Audio",
-                               media=True),
+                               media=True, flags=True),
         "video": config_phases(VIDEO, video_data(seed), seed, card, errs, bwd_errs, "Video",
-                               stack_check=True, remat=True, resume=True, media=True),
+                               stack_check=True, remat=True, resume=True, media=True,
+                               modes=True),
         "protein": config_phases(PROTEIN, protein_data(seed), seed, card, errs, bwd_errs,
                                  "Protein", media=True),
     }
@@ -1062,6 +1185,13 @@ EPOCH_PARTS = (("siren_bwd", ("siren_bwd",)), ("siren_fwd", ("siren_fwd",)),
 OTHER_PART = "elementwise, reductions and copies (sampling, KL, Adam, layouts)"
 
 
+def conv_share(by_kernel: dict) -> float:
+    """The conv stack's cuDNN kernels' share of the device time."""
+    conv = sum(us for name, us in by_kernel.items()
+               if any(k in name.lower() for k in CONV_KERNEL_WORDS))
+    return conv / sum(by_kernel.values())
+
+
 def epoch_parts(by_kernel: dict) -> dict:
     """Device microseconds of each part of an epoch (``EPOCH_PARTS``)."""
     parts = {name: 0.0 for name, _ in EPOCH_PARTS}
@@ -1077,11 +1207,11 @@ def epoch_parts(by_kernel: dict) -> dict:
 def epoch_pieces(state, cfg, gen) -> dict:
     """Device milliseconds by CUDA events of the pieces of a training epoch
     that the profiler's kernel names do not separate, each on its own at
-    the epoch's shapes (exact f32, deterministic cuDNN): the conv stack's
-    forward, its data gradient (forward and input gradient, less the
-    forward) and its weight gradient (forward and every gradient, less the
-    forward and input gradient); the A-transforms' forward and gradients;
-    and Adam's step over every leaf."""
+    the epoch's shapes and precision (the ambient, deterministic cuDNN):
+    the conv stack's forward, its data gradient (forward and input
+    gradient, less the forward) and its weight gradient (forward and every
+    gradient, less the forward and input gradient); the A-transforms'
+    forward and gradients; and Adam's step over every leaf."""
     R = state.w.loc.shape[0]
     noise = trainer.draw_noise(state, cfg, 1, gen)
     lpe = (state.lpe.loc[:, None] + state.lpe.scale[:, None] * noise[0]).detach()
@@ -1092,7 +1222,7 @@ def epoch_pieces(state, cfg, gen) -> dict:
     h_w = (state.w.loc + state.w.scale * noise[1][:, 0]).detach().requires_grad_()
     A = [a.detach().requires_grad_() for a in state.A]
     dtheta = torch.randn(R, cfg.n_inr_params, generator=gen, device="cuda")
-    with exact_f32(), deterministic_convs():
+    with precision(), deterministic_convs():
         def stack_grads(of):
             return torch.autograd.grad(mappings.lpe_to_pe(up, lpe_g, cfg), of, dy)
 
@@ -1263,13 +1393,27 @@ def train_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
                 print(f"  {ms_:8.4f} ms {100 * ms_ / device_ms:5.1f}%  {name}")
             for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
                 print(f"  {us / 1e4:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name[:100]}")
+            # the same under --precision highest (exact f32): what TF32 moved
+            with platform.ambient("highest"):
+                busy_hi, wall_hi, by_kernel_hi = device_time_by_kernel(lambda: sgd(10), 1)
+            parts_hi = epoch_parts(by_kernel_hi)
+            print(f"under --precision highest: {busy_hi / 1e4:.3f} ms device time per epoch in "
+                  f"{wall_hi / 1e4:.3f} ms wall; by kernel name:")
+            for name, us in parts_hi.items():
+                print(f"  {us / 1e4:8.4f} ms/epoch {100 * us / busy_hi:5.1f}%  {name}")
+            epoch_by_mode = by_mode(lambda: wall_s(lambda: sgd(10), 1) / 10)
+            print(mode_line(f"train_epoch_s (CIFAR R={TRAIN_ROWS}, S=1, 10 warm epochs)",
+                            epoch_by_mode) + f" [{card}]")
             with exact_f32():
                 fwd, bwd = kernel_checks(art, TRAIN_ROWS, 1, gen, card, errs, bwd_errs,
                                          "CIFAR train")
             out["timing"] = {"train_epoch_s": epoch_s, "peak_mib": peak / 2**20,
                              "device_ms": busy_us / 1e4, "idle": 1 - busy_us / wall_us,
                              "parts_ms": {k: v / 1e4 for k, v in parts.items()},
-                             "pieces_ms": pieces, "siren_fwd": fwd, "siren_bwd": bwd}
+                             "pieces_ms": pieces, "siren_fwd": fwd, "siren_bwd": bwd,
+                             "train_epoch_s_by_mode": epoch_by_mode,
+                             "device_ms_highest": busy_hi / 1e4,
+                             "parts_ms_highest": {k: v / 1e4 for k, v in parts_hi.items()}}
 
         with phase("train determinism"):
             lo, hi = cfg.bits_budget(TRAIN_BITRATE)
@@ -1292,7 +1436,7 @@ def train_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
                 leaves = [t.detach().clone().requires_grad_() for t in state.leaves()]
                 s = state.with_leaves(leaves)
                 g = torch.Generator(device="cuda").manual_seed(seed)
-                with exact_f32(), deterministic_convs():
+                with precision(), deterministic_convs():
                     y_hat = trainer.forward(s, X, cfg, generator=g)[:, 0]
                     loss = (torch.mean((y_hat - Y) ** 2) * TRAIN_ROWS
                             + beta * trainer.total_kl(s, priors))
@@ -1320,7 +1464,8 @@ def train_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
             if not (equal_runs and equal_grads and equal_resume):
                 raise AssertionError("training on the card does not repeat bit for bit")
             del runs, cont_mem, cont_disk, st_l, pr_l
-            # one epoch at R = 64 from one state and one noise draw, card vs CPU
+            # one epoch at R = 64 from one state and one noise draw, card vs CPU,
+            # under --precision highest (exact f32 on the card, as the CPU computes)
             rows = slice(0, 64)
             small = trainer.PriorState(
                 w=trainer.Gaussian(state.w.loc[rows], state.w.log_scale[rows]),
@@ -1329,8 +1474,9 @@ def train_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
             noise = trainer.draw_noise(small, cfg, 1, torch.Generator(device="cuda")
                                        .manual_seed(seed))
             small_cpu, pr_cpu = small.to("cpu"), priors.to("cpu")
-            card_out = trainer.sgd_epochs(small, X[rows], Y[rows], priors, beta, lambda: noise,
-                                          cfg=cfg, n_epochs=1, lr=TRAIN_LR)
+            with platform.ambient("highest"):
+                card_out = trainer.sgd_epochs(small, X[rows], Y[rows], priors, beta,
+                                              lambda: noise, cfg=cfg, n_epochs=1, lr=TRAIN_LR)
             cpu_out = trainer.sgd_epochs(small_cpu, torch.from_numpy(X_np[rows]),
                                          torch.from_numpy(Y_np[rows]), pr_cpu, beta,
                                          lambda: [n.cpu() for n in noise], cfg=cfg,
@@ -1338,7 +1484,8 @@ def train_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
             worst = states_close(card_out[0], cpu_out[0], small_cpu, 1)
             m_err = abs(card_out[1].mse.item() / cpu_out[1].mse.item() - 1)
             k_err = abs(card_out[1].kl.item() / cpu_out[1].kl.item() - 1)
-            print(f"one epoch at R=64 from one state and one noise draw, card vs CPU: mse "
+            print(f"one epoch at R=64 from one state and one noise draw, card (--precision "
+                  f"highest) vs CPU: mse "
                   f"relative diff {m_err:.3e}, KL {k_err:.3e} (rtol 1e-4); every leaf within "
                   f"{worst:.3f} of its bound (1e-6 of its norm + 1e-2 of the change's, every "
                   f"element within 2 lr) [{card}]")
@@ -1488,6 +1635,179 @@ def train_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
                                   "siren_fwd": fwd_k, "siren_bwd": bwd_k}
     finally:
         shutil.rmtree(tmp_root, ignore_errors=True)
+    return out
+
+
+# the CIFAR decode check (card rows 0-7 against the CPU's, atol 1e-4 and
+# rtol 1e-4) repeated this many times under each choice of cuDNN algorithms
+DECODE_REPEATS = 5
+
+
+def decode_repeats(codec, art, idx, X, cfg) -> dict:
+    """The CIFAR decode check DECODE_REPEATS times on deterministic cuDNN
+    algorithms (decode's own, since this slice) and on cuDNN's own choice
+    (what decode ran on before): each mode's largest gap to the CPU, whether
+    its decodes are bitwise equal, the decode wall in turns (own choice,
+    deterministic, deterministic, own choice; mean of 20 after a warm
+    call) and the device time of 10 decodes under the profiler."""
+    feats, rows = X[0].cpu(), idx["w"][:8]
+    y_cpu = decode(init_codec(art, len(rows), device="cpu")[0], {"w": rows},
+                   feats.expand(len(rows), *feats.shape), cfg)
+    out = {}
+    choices = {"deterministic": decoder.deterministic_convs,
+               "cudnn_choice": contextlib.nullcontext}
+    for name in ("cudnn_choice", "deterministic"):
+        with replaced(decoder, "deterministic_convs", lambda _: choices[name]):
+            ys = [decode(codec, idx, X, cfg) for _ in range(DECODE_REPEATS)]
+        gaps = [(y[:len(rows)].cpu() - y_cpu).abs() for y in ys]
+        out[name] = {"max_gap": max(g.max().item() for g in gaps),
+                     "bitwise_equal": all(torch.equal(y, ys[0]) for y in ys),
+                     "over_tol": sum(int((g > ATOL + RTOL * y_cpu.abs()).sum()) for g in gaps),
+                     "wall_ms": []}
+    for name in ("cudnn_choice", "deterministic", "deterministic", "cudnn_choice"):
+        with replaced(decoder, "deterministic_convs", lambda _: choices[name]):
+            out[name]["wall_ms"].append(1e3 * wall_s(lambda: decode(codec, idx, X, cfg), 20))
+    for name in choices:
+        with replaced(decoder, "deterministic_convs", lambda _: choices[name]):
+            busy, wall, _ = device_time_by_kernel(lambda: decode(codec, idx, X, cfg), 10)
+        out[name]["device_ms"], out[name]["idle"] = busy / 1e4, 1 - busy / wall
+    return out
+
+
+def precision_modes(codec, state0, X, Y, art, idx, res, seed: int, card: str, kodak: dict,
+                    modalities: dict, train: dict) -> dict:
+    """The precision modes on the card: epoch_s (CIFAR S = 5 and S = 3, and
+    the Kodak, video and training ones measured in their phases) under the
+    ambient (TF32) and under --precision highest; a CIFAR epoch's device
+    time and conv share under each; the CIFAR encode of the encode slice
+    repeated (bitwise) and run again under highest, both bitstreams decoded
+    back, the PSNR gap; the audio encode's flags; one epoch traced with
+    ``utils.tracing.trace``; ``blocked_inr`` against ``inr_forward_fused``;
+    the decode check repeated (``decode_repeats``)."""
+    cfg = CIFAR
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def epochs(n, S=SAMPLE_SIZE):
+        return encoder.optimize(codec, state0, X, Y, cfg, gen, n_epochs=n, sample_size=S)
+
+    times = {
+        f"CIFAR epoch_s (R={N_ROWS}, S={SAMPLE_SIZE})":
+            by_mode(lambda: wall_s(lambda: epochs(10), 1) / 10),
+        f"CIFAR epoch_s at S=3 (R={N_ROWS})":
+            by_mode(lambda: wall_s(lambda: epochs(10, 3), 1) / 10),
+        f"Kodak epoch_s (R={kodak['rows']}, S={SAMPLE_SIZE})": kodak["encode"]["epoch_s_by_mode"],
+        f"Video epoch_s (R={modalities['video']['rows']}, S={SAMPLE_SIZE})":
+            modalities["video"]["encode"]["epoch_s_by_mode"],
+        f"train_epoch_s (CIFAR R={TRAIN_ROWS}, S=1)": train["timing"]["train_epoch_s_by_mode"],
+    }
+    print("host clock around 10 warm epochs, synchronised; each mode twice, in turns ambient, "
+          "highest, highest, ambient:")
+    for what, t in times.items():
+        print("  " + mode_line(what, t) + f" [{card}]")
+    out["epoch_s_by_mode"] = times
+    prof = {}
+    for m in MODES:
+        with platform.ambient(None if m == "ambient" else m):
+            busy, wall, by_kernel = device_time_by_kernel(lambda: epochs(1), 5)
+        prof[m] = {"device_ms": busy / 5e3, "idle": 1 - busy / wall,
+                   "conv_share": conv_share(by_kernel)}
+        print(f"CIFAR epoch (R={N_ROWS}, S={SAMPLE_SIZE}) at {m}, 5 epochs under the profiler: "
+              f"{prof[m]['device_ms']:.3f} ms device time per epoch, idle share "
+              f"{prof[m]['idle']:.4f}, the conv stack's cuDNN kernels "
+              f"{100 * prof[m]['conv_share']:.1f}% [{card}]")
+    tt = train["timing"]
+    print(f"training epoch (CIFAR R={TRAIN_ROWS}, S=1) device time: ambient "
+          f"{tt['device_ms']:.3f} ms (conv stack "
+          f"{100 * tt['parts_ms']['conv stack (cuDNN)'] / tt['device_ms']:.1f}%), highest "
+          f"{tt['device_ms_highest']:.3f} ms (conv stack "
+          f"{100 * tt['parts_ms_highest']['conv stack (cuDNN)'] / tt['device_ms_highest']:.1f}%) "
+          f"[{card}]")
+    out["cifar_epoch_profile"] = prof
+
+    def encode():
+        return progressive.compress(
+            codec, state0, X, Y, cfg, torch.Generator(device="cuda").manual_seed(seed),
+            n_optimize_epochs=ENCODE_PHASE1_EPOCHS, sample_size=SAMPLE_SIZE,
+            finetune_overrides={"w": ENCODE_FINETUNE_EPOCHS})
+
+    again = encode()
+    with platform.ambient("highest"):
+        hi = encode()
+    repeat = (np.array_equal(again.indices["w"], res.indices["w"])
+              and same_posteriors(again.state, res.state)
+              and np.array_equal(again.reconstruction, res.reconstruction))
+    runs = {"none": res, "highest": hi}
+    nbytes = {m: check_bitstream(codec, r, X, cfg, art, f"CIFAR encode, --precision {m}")
+              for m, r in runs.items()}
+    psnr = {m: float(np.mean(r.distortion)) for m, r in runs.items()}
+    moved = int((hi.indices["w"] != res.indices["w"]).sum())
+    print(f"CIFAR encode R={N_ROWS} (phase 1 {ENCODE_PHASE1_EPOCHS} epochs, 1-epoch finetunes) "
+          f"from one generator state: --precision none {nbytes['none']} bytes, "
+          f"{res.bitrate:.4f} bpp, PSNR {psnr['none']:.4f} dB (optimize "
+          f"{res.timings['optimize_s']:.3f} s, code {res.timings['code_s']:.3f} s); highest "
+          f"{nbytes['highest']} bytes, {hi.bitrate:.4f} bpp, PSNR {psnr['highest']:.4f} dB "
+          f"(optimize {hi.timings['optimize_s']:.3f} s, code {hi.timings['code_s']:.3f} s); PSNR "
+          f"gap none - highest {psnr['none'] - psnr['highest']:+.4f} dB; {moved} of "
+          f"{hi.indices['w'].size} indices differ; the none-mode encode repeated: bitwise "
+          f"equal {repeat} [{card}]")
+    if not repeat:
+        raise AssertionError("the CIFAR encode at the ambient TF32 does not repeat bit for bit")
+    out["encode"] = {"bytes": nbytes, "psnr": psnr, "psnr_gap": psnr["none"] - psnr["highest"],
+                     "indices_differ": moved, "repeat": repeat}
+    out["audio_flags"] = modalities["audio"]["encode"]["flags"]
+    print(f"audio encode (--precision none): (cuBLAS TF32, cuDNN TF32) at every product "
+          f"{out['audio_flags']}: the unrounded-PSNR auto ran its finetunes exact")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with tracing.trace(tmp):
+            epochs(1)
+        path = os.path.join(tmp, tracing.TRACE_FILE)
+        with open(path) as f:
+            text = f.read()
+    names_bwd = "siren_bwd" in text
+    print(f"one CIFAR epoch under utils.tracing.trace: {tracing.TRACE_FILE} of {len(text)} bytes, "
+          f"names siren_bwd {names_bwd}")
+    if not names_bwd:
+        raise AssertionError("the trace of a CIFAR epoch does not name the siren_bwd kernel")
+    out["trace_bytes"] = len(text)
+
+    with torch.no_grad(), exact_f32():
+        g = torch.Generator(device="cuda").manual_seed(seed + 3)
+        n = cfg.n_inr_params
+        x = torch.randn(N_ROWS, SAMPLE_SIZE, cfg.n_pixels, cfg.input_dim, generator=g,
+                        device="cuda")
+        loc = torch.as_tensor(art.w.p_loc[:n], device="cuda")
+        scale = torch.as_tensor(art.w.p_scale[:n], device="cuda")
+        h_w = loc + scale * torch.randn(N_ROWS, SAMPLE_SIZE, n, generator=g, device="cuda")
+        fused = fused_inr.inr_forward_fused(x, h_w, codec.A, cfg)
+        blocked = inr_forward_blocked(x, h_w, codec.A, cfg)
+        err = (blocked - fused).abs()
+        bad = int((err > ATOL + RTOL * fused.abs()).sum())
+        ms = {"fused": cuda_ms(lambda: fused_inr.inr_forward_fused(x, h_w, codec.A, cfg), 10),
+              "blocked": cuda_ms(lambda: inr_forward_blocked(x, h_w, codec.A, cfg), 10)}
+    print(f"blocked_inr vs inr_forward_fused (siren_fwd), R={N_ROWS} S={SAMPLE_SIZE} "
+          f"P={cfg.n_pixels}, exact f32: max abs diff {err.max().item():.3e} (atol {ATOL}, rtol "
+          f"{RTOL}); {ms['blocked']:.4f} ms blocked (4 samples per block-diagonal bmm), "
+          f"{ms['fused']:.4f} ms fused, A-transforms included [{card}]")
+    if bad or not torch.isfinite(blocked).all():
+        raise AssertionError(f"blocked_inr disagrees with inr_forward_fused in {bad} entries")
+    out["blocked_inr"] = {"max_abs_err": err.max().item(), "ms": ms}
+    del x, h_w, fused, blocked, err
+
+    repeats = decode_repeats(codec, art, idx, X, cfg)
+    for name, r in repeats.items():
+        on = {"deterministic": "deterministic cuDNN algorithms",
+              "cudnn_choice": "cuDNN's own choice of algorithms"}[name]
+        print(f"CIFAR decode check x{DECODE_REPEATS} on {on}: "
+              f"largest gap card rows 0-7 vs CPU {r['max_gap']:.3e} (atol {ATOL}, rtol {RTOL}), "
+              f"{r['over_tol']} entries over; decodes bitwise equal {r['bitwise_equal']}; decode "
+              f"R={N_ROWS} wall {r['wall_ms'][0]:.3f} / {r['wall_ms'][1]:.3f} ms, device "
+              f"{r['device_ms']:.3f} ms (idle share {r['idle']:.4f}) [{card}]")
+    if repeats["deterministic"]["over_tol"] or not repeats["deterministic"]["bitwise_equal"]:
+        raise AssertionError("decode on deterministic algorithms missed its CPU check or did not "
+                             "repeat")
+    out["decode_repeats"] = repeats
     return out
 
 
@@ -1726,9 +2046,9 @@ def main(argv=None) -> int:
             encoder.encode_step(codec, state0)
         torch.cuda.synchronize()
         code_step_s = (time.perf_counter() - t0) / 5
-        print(f"epoch_s {epoch_s:.6f} (R={N_ROWS}, S={SAMPLE_SIZE}, mean of 10 warm epochs), "
-              f"peak device memory {epoch_peak / 2**20:.1f} MiB; code_step_s {code_step_s:.6f} "
-              f"(one encode_step, mean of 5) [{card}]")
+        print(f"epoch_s {epoch_s:.6f} (R={N_ROWS}, S={SAMPLE_SIZE}, mean of 10 warm epochs at "
+              f"the ambient TF32), peak device memory {epoch_peak / 2**20:.1f} MiB; code_step_s "
+              f"{code_step_s:.6f} (one encode_step, exact in every mode, mean of 5) [{card}]")
 
     n_prof = 10
     with phase("decode profile"):
@@ -1744,10 +2064,11 @@ def main(argv=None) -> int:
     with phase("epoch profile"):
         busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: epochs(1), n_prof)
         epoch_idle = 1 - busy_us / wall_us
-        print(f"encode R={N_ROWS} S={SAMPLE_SIZE}, {n_prof} epochs under the profiler: "
-              f"{busy_us / 1e3 / n_prof:.3f} ms device time per epoch in "
+        print(f"encode R={N_ROWS} S={SAMPLE_SIZE}, {n_prof} epochs at the ambient TF32 under the "
+              f"profiler: {busy_us / 1e3 / n_prof:.3f} ms device time per epoch in "
               f"{wall_us / 1e3 / n_prof:.3f} ms wall of the same epochs, idle share "
-              f"{epoch_idle:.4f} (unprofiled epoch_s {epoch_s * 1e3:.3f} ms)")
+              f"{epoch_idle:.4f} (unprofiled epoch_s {epoch_s * 1e3:.3f} ms); the conv stack's "
+              f"cuDNN kernels {100 * conv_share(by_kernel):.1f}%")
         for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
             print(f"  {us / 1e3 / n_prof:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name[:100]}")
 
@@ -1774,8 +2095,8 @@ def main(argv=None) -> int:
         for name, t in stack_times.items():
             print(f"{name} stack: epoch_s {t['epoch_s'][0]:.6f} / {t['epoch_s'][1]:.6f}, decode "
                   f"{1e3 * t['decode_s'][0]:.3f} / {1e3 * t['decode_s'][1]:.3f} ms (R={N_ROWS}, "
-                  f"S={SAMPLE_SIZE}, exact f32; runs in the order plain, phase, phase, plain) "
-                  f"[{card}]")
+                  f"S={SAMPLE_SIZE}, epochs at the ambient TF32, decode exact; runs in the order "
+                  f"plain, phase, phase, plain) [{card}]")
         print(f"mappings.lpe_to_pe uses: {mappings.STACK.__name__}")
         other = next(n for n, f in stacks.items() if f is not mappings.STACK)
         with stack(stacks[other]):
@@ -1874,6 +2195,9 @@ def main(argv=None) -> int:
                       "rd_sweep": train["rd_sweep"]["launches"],
                       "kodak_train": train["kodak_train"]["launches"]}
     train_shapes = {"cifar_train": train["timing"], "kodak_train": train["kodak_train"]}
+    with phase("precision modes"):
+        modes = precision_modes(codec, state0, X, Y, art, idx, res, args.seed, card, kodak,
+                                modalities, train)
 
     kernels = [{
         "name": "siren_fwd",
@@ -1961,7 +2285,16 @@ def main(argv=None) -> int:
           f"{train['kodak_train']['wall_s']:.3f} s; repeats, resume and the relaunched "
           f"rd_sweeps bitwise equal, card vs CPU epoch within {det['card_vs_cpu_of_bound']:.3f} "
           f"of its bound [{card}]")
+    e = modes["encode"]
+    print("precision modes: highest / ambient epoch_s "
+          + ", ".join(f"{what.split(' (')[0]} {sum(t['highest']) / sum(t['ambient']):.3f}"
+                      for what, t in modes["epoch_s_by_mode"].items())
+          + f"; CIFAR encode PSNR none {e['psnr']['none']:.4f}, highest "
+          f"{e['psnr']['highest']:.4f} dB (gap {e['psnr_gap']:+.4f}), none repeats bitwise; "
+          f"decode x{DECODE_REPEATS} largest gap "
+          f"{modes['decode_repeats']['deterministic']['max_gap']:.3e} [{card}]")
     print(f"total: {time.perf_counter() - t_all:.2f} s [{card}]")
+    print(json.dumps({"precision_modes": modes}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

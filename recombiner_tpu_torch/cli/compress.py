@@ -34,13 +34,22 @@ from recombiner_tpu_torch.io.checkpoint import (
     prior_fingerprint,
 )
 from recombiner_tpu_torch.utils.memory import resolve_remat
+from recombiner_tpu_torch.utils.platform import PRECISION_CHOICES, apply_precision_mode
 
 # The queue that ports each flag's values that the port does not run yet
 # (ROADMAP.md, port queue 1 unless named).
 _QUEUE = {
     "n_devices": "scale-out (queue 7)",
-    "precision": "precision modes (the port encodes in exact f32)",
 }
+
+PRECISION_HELP = (
+    "matmul precision on the card, where the ambient f32 product is TF32 (cuBLAS and cuDNN "
+    "allow_tf32 on) and 'highest' is exact f32. A* scoring and decode are exact in every "
+    "mode. Default: phase 1 and finetunes at TF32, but exact finetunes for the "
+    "unrounded-PSNR (audio-family) configs. 'default': TF32 finetunes for every config. "
+    "'scoped': exact finetunes. 'scoped_high': TF32 finetunes (computes what 'default' "
+    "computes). 'high': the process at TF32 (computes what the default computes). "
+    "'highest': the process at exact f32, training included")
 
 
 def parse_args(argv=None):
@@ -100,9 +109,8 @@ def parse_args(argv=None):
     p.add_argument("--fused_steps", type=int, default=None,
                    help="group steps per snapshot (the JAX package's fused coding "
                         "path); changes no number")
-    p.add_argument("--precision", default=None,
-                   choices=("scoped", "scoped_high", "default", "high", "highest"),
-                   help="the port runs exact f32 throughout: the default or 'highest'")
+    p.add_argument("--precision", default=None, choices=PRECISION_CHOICES,
+                   help=PRECISION_HELP)
     return p.parse_args(argv)
 
 
@@ -149,7 +157,6 @@ def unported(args) -> list:
     run something other than what it runs; empty when it runs them all."""
     bad = {
         "n_devices": args.n_devices is not None and args.n_devices > 1,
-        "precision": args.precision not in (None, "highest"),
     }
     return [f"--{name} {getattr(args, name)} ({_QUEUE[name]})"
             for name, on in bad.items() if on]
@@ -192,6 +199,7 @@ def main(argv=None):
     given = unported(args)
     if given:
         raise NotImplementedError("not ported yet: " + ", ".join(given) + " (ROADMAP.md)")
+    coding_precision = apply_precision_mode(args.precision)
     art = load_prior_artifact(args.prior_path)
     cfg = art.config
     if args.dataset is not None and args.dataset != cfg.name:
@@ -229,6 +237,7 @@ def main(argv=None):
         remat=remat,
         state_extra={"prior_fingerprint": prior_fingerprint(art)},
         finetune_crn=args.finetune_crn,
+        coding_precision=coding_precision,
         **resume,
     )
 

@@ -41,6 +41,7 @@ from recombiner_tpu_torch.io.checkpoint import (
 from recombiner_tpu_torch.priors import trainer
 from recombiner_tpu_torch.priors.artifact import build_prior_artifact
 from recombiner_tpu_torch.utils.memory import resolve_remat
+from recombiner_tpu_torch.utils.platform import PRECISION_CHOICES, apply_precision_mode
 
 
 def parse_args(argv=None):
@@ -107,9 +108,8 @@ def parse_args(argv=None):
     p.add_argument("--probe_every", type=int, default=10,
                    help="minimum EM iterations between realized-rate probes")
     p.add_argument("--finetune_crn", action=argparse.BooleanOptionalAction, default=None)
-    p.add_argument("--precision", default=None,
-                   choices=("scoped", "scoped_high", "default", "high", "highest"),
-                   help="the port runs exact f32 throughout: the default or 'highest'")
+    p.add_argument("--precision", default=None, choices=PRECISION_CHOICES,
+                   help=compress_cli.PRECISION_HELP)
     return p.parse_args(argv)
 
 
@@ -172,9 +172,10 @@ def train_prior(args, cfg, Xtr, Ytr, max_bitrate: float, dev):
     return build_prior_artifact(res.state, res.priors, res.kl_beta, cfg, codebook_seed=args.seed)
 
 
-def encode_point(args, art, cfg, Xte, Yte, max_bitrate: float, remat: bool, dev) -> dict:
-    """Encode the test set with ``art`` (resumable through ``--state_dir``)
-    and return the RD point."""
+def encode_point(args, art, cfg, Xte, Yte, max_bitrate: float, remat: bool, dev,
+                 coding_precision=None) -> dict:
+    """Encode the test set with ``art`` (resumable through ``--state_dir``),
+    its finetunes at ``coding_precision``, and return the RD point."""
     codec, state = init_codec(art, n_rows=Xte.shape[0], device=dev)
     state_path, resume = None, {}
     if args.state_dir is not None:
@@ -197,7 +198,7 @@ def encode_point(args, art, cfg, Xte, Yte, max_bitrate: float, remat: bool, dev)
                             else {k: args.finetune_epochs for k in codec.level_names}),
         verbose=True, remat=remat, state_path=state_path,
         state_extra={"prior_fingerprint": prior_fingerprint(art)},
-        finetune_crn=args.finetune_crn, **resume,
+        finetune_crn=args.finetune_crn, coding_precision=coding_precision, **resume,
     )
     point = {
         "target_bitrate": max_bitrate,
@@ -221,6 +222,8 @@ def main(argv=None):
     given = compress_cli.unported(args)
     if given:
         raise NotImplementedError("not ported yet: " + ", ".join(given) + " (ROADMAP.md)")
+    # before training: --precision highest makes the training exact too
+    coding_precision = apply_precision_mode(args.precision)
     dev = resolve_device(args.device)
     cfg = get_config(args.dataset)
     if args.em_chunk is None:
@@ -263,7 +266,8 @@ def main(argv=None):
                 print(f"(--skip_encode) WARNING: trained prior for bitrate {max_bitrate} "
                       "DISCARDED — pass --save_prior_dir to keep it", flush=True)
             continue
-        point = encode_point(args, art, cfg, Xte, Yte, max_bitrate, remat, dev)
+        point = encode_point(args, art, cfg, Xte, Yte, max_bitrate, remat, dev,
+                             coding_precision)
         points.append(point)
         print(json.dumps(point), flush=True)
 

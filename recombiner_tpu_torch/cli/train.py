@@ -22,7 +22,7 @@ import torch
 
 from recombiner_tpu_torch.config import get_config
 from recombiner_tpu_torch.data.load_data import load_training_set
-from recombiner_tpu_torch.device import exact_f32, resolve_device
+from recombiner_tpu_torch.device import precision, resolve_device
 from recombiner_tpu_torch.io.checkpoint import save_prior_artifact
 from recombiner_tpu_torch.metrics import batch_psnr
 from recombiner_tpu_torch.priors import trainer
@@ -103,7 +103,7 @@ def main(argv=None):
         save_prior_artifact(ckpt_path, art)
 
     def log_fn(em_iter, rec, state, priors):
-        with torch.no_grad(), exact_f32():
+        with torch.no_grad(), precision():
             y_hat = trainer.forward(state, X, cfg,
                                     generator=torch.Generator(device=dev).manual_seed(em_iter))
         print(log_line(cfg, Y_np, y_hat[:, 0].cpu().numpy(), em_iter, rec,

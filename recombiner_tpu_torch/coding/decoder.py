@@ -30,7 +30,12 @@ import torch
 from recombiner_tpu_torch.coding.codebook import make_codebook
 from recombiner_tpu_torch.coding.gumbel import gumbel_chain
 from recombiner_tpu_torch.config import ModalityConfig
-from recombiner_tpu_torch.device import DeviceLike, exact_f32, resolve_device
+from recombiner_tpu_torch.device import (
+    DeviceLike,
+    deterministic_convs,
+    exact_f32,
+    resolve_device,
+)
 from recombiner_tpu_torch.io.checkpoint import LevelArtifact, PriorArtifact
 from recombiner_tpu_torch.io.convert import torch_params_from_artifact
 from recombiner_tpu_torch.models.gaussian import Gaussian, scale_transform
@@ -336,8 +341,11 @@ def predict(codec: Codec, state: CodecState, X: torch.Tensor, cfg: ModalityConfi
 def decode(codec: Codec, indices: Dict[str, object], X, cfg: ModalityConfig) -> torch.Tensor:
     """indices {'w': (R, G)} (and 'h', 'hh' for a patch config) ->
     reconstruction (R, P, out) on the codec's device, in exact f32 (TF32
-    off), as the JAX package decodes at precision='highest'."""
-    with exact_f32():
+    off) in every precision mode, as the JAX package decodes at
+    precision='highest', and on deterministic cuDNN algorithms, as the
+    encode's epochs run: cuDNN's own choice may depend on the strides and
+    the workspace it finds, and a receiver's decode should not."""
+    with exact_f32(), deterministic_convs():
         state = decode_state(codec, indices, cfg)
         X = torch.as_tensor(X, dtype=torch.float32, device=codec.device)
         return predict(codec, state, X, cfg)[:, 0]

@@ -47,6 +47,7 @@ from recombiner_tpu_torch.coding.decoder import (
 )
 from recombiner_tpu_torch.config import ModalityConfig
 from recombiner_tpu_torch.device import deterministic_convs, exact_f32
+from recombiner_tpu_torch.device import precision as precision_scope
 from recombiner_tpu_torch.models.gaussian import Gaussian, kl_gaussian, scale_transform
 
 LOG2 = math.log(2.0)
@@ -296,20 +297,22 @@ def optimize(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
              cfg: ModalityConfig, generator: NoiseSource, *, n_epochs: int,
              lr: LearningRate = 2e-4, sample_size: int = 5,
              opt_state: Optional[AdamState] = None, return_opt_state: bool = False,
-             remat: bool = False):
+             remat: bool = False, precision: Optional[str] = None):
     """MC-ELBO posterior optimisation with beta annealing, in the order of
     ``encoder.py:487-569`` (``_epoch``; ``i`` restarts at 0 in each call).
     Adam starts fresh unless ``opt_state`` is given; with
     ``return_opt_state`` the result is (state, Adam state), so one run can
     be split into chunks without changing it. Fresh noise per epoch from
     ``generator`` (or, in the tests, a callable that returns each epoch's
-    noise). Runs in exact f32 (TF32 off in cuBLAS and cuDNN), the port's
-    one precision, on deterministic cuDNN algorithms. Every level is
-    optimised and annealed; ``remat`` recomputes each epoch's forward in its
-    backward (``elbo_loss``), which changes no number."""
+    noise). Runs at ``precision`` (``device.precision``: None the
+    process's ambient, TF32 unless made exact; 'highest' exact f32; 'high'
+    or 'default' TF32), as the JAX package's ``precision`` argument, on
+    deterministic cuDNN algorithms. Every level is optimised and annealed;
+    ``remat`` recomputes each epoch's forward in its backward
+    (``elbo_loss``), which changes no number."""
     params = _trainables(codec, state)
     opt_state = adam_init(params) if opt_state is None else opt_state
-    with exact_f32(), deterministic_convs():
+    with precision_scope(precision), deterministic_convs():
         for i in range(n_epochs):
             state, opt_state, _, _ = _epoch(codec, state, params, X, Y, cfg, generator, i,
                                             opt_state, lr, sample_size, remat)
@@ -322,7 +325,7 @@ def optimize_adaptive(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch
                       min_epoch: float, rel_tol: float, es_carry: Tuple[float, float], *,
                       lr: LearningRate = 2e-4, sample_size: int = 5, window: int = 25,
                       opt_state: Optional[AdamState] = None, monitor: str = "loss",
-                      remat: bool = False):
+                      remat: bool = False, precision: Optional[str] = None):
     """``optimize`` that stops on a plateau (``encoder.py:580-685``): the same
     epochs, from global epoch ``epoch0`` up to ``max_epoch``; after every
     ``window``-th global epoch, once ``min_epoch`` epochs have run, stop
@@ -331,7 +334,8 @@ def optimize_adaptive(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch
     less than ``rel_tol`` times its magnitude. ``i % KL_ADJUST_GAP`` and
     the window boundaries use the global epoch, so chunks that thread
     ``es_carry = (previous window mean, running window sum)`` (start:
-    (inf, 0.0)) and ``opt_state`` run as one call.
+    (inf, 0.0)) and ``opt_state`` run as one call. ``precision`` as in
+    ``optimize``.
 
     The window sum is an f32 tensor on the device, summed in epoch order,
     and the test is evaluated in f32 as the JAX package's is; the host
@@ -346,7 +350,7 @@ def optimize_adaptive(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch
     prev, cur = (torch.tensor(float(v), dtype=torch.float32, device=dev) for v in es_carry)
     tol = torch.tensor(float(rel_tol), dtype=torch.float32, device=dev)
     i, stopped = int(epoch0), False
-    with exact_f32(), deterministic_convs():
+    with precision_scope(precision), deterministic_convs():
         while i < max_epoch and not stopped:
             state, opt_state, loss, mse = _epoch(codec, state, params, X, Y, cfg, generator, i,
                                                  opt_state, lr, sample_size, remat)
@@ -457,7 +461,8 @@ def encode_chunk(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tens
                  cfg: ModalityConfig, noise: FinetuneNoise, min_epoch: float = 0,
                  rel_tol: float = 0.0, *, n_steps: int, n_ft: int, lr: float = 2e-4,
                  sample_size: int = 5, window: int = 0, lr_schedule: Optional[str] = None,
-                 level: str = "w", remat: bool = False) -> Tuple[CodecState, np.ndarray]:
+                 level: str = "w", remat: bool = False,
+                 precision: Optional[str] = None) -> Tuple[CodecState, np.ndarray]:
     """``n_steps`` group steps of ``encoder.py:796-926`` at ``level``, each an
     ``encode_step`` followed by a finetune (of every level, as the JAX
     package's) with a fresh Adam whose noise
@@ -466,8 +471,9 @@ def encode_chunk(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tens
     ``window > 0`` stops on a plateau of the loss (``optimize_adaptive``
     with its epoch counted from 0 in each finetune, ``n_ft`` the ceiling).
     ``lr_schedule='cosine'`` decays each finetune's lr from ``lr`` to 0
-    over ``n_ft`` steps, a fresh schedule per group. Returns (state, epochs
-    each finetune ran, shape (n_steps,))."""
+    over ``n_ft`` steps, a fresh schedule per group. The finetunes run at
+    ``precision`` (``optimize``'s); the A* scoring is exact in every mode.
+    Returns (state, epochs each finetune ran, shape (n_steps,))."""
     if lr_schedule not in (None, "cosine"):
         raise ValueError(f"lr_schedule must be None or 'cosine', not {lr_schedule!r}")
     rate = cosine_lr(lr, 0.0, max(n_ft, 1)) if lr_schedule == "cosine" else lr
@@ -479,9 +485,10 @@ def encode_chunk(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tens
         if window > 0:
             state, _, _, ran[k], _ = optimize_adaptive(
                 codec, state, X, Y, cfg, noise(), 0, n_ft, min_epoch, rel_tol, (math.inf, 0.0),
-                lr=rate, sample_size=sample_size, window=window, remat=remat)
+                lr=rate, sample_size=sample_size, window=window, remat=remat,
+                precision=precision)
         else:
             state = optimize(codec, state, X, Y, cfg, noise(), n_epochs=n_ft, lr=rate,
-                             sample_size=sample_size, remat=remat)
+                             sample_size=sample_size, remat=remat, precision=precision)
             ran[k] = n_ft
     return state, ran

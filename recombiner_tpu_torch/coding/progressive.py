@@ -1,18 +1,23 @@
 """The progressive encode loop of ``recombiner_tpu/coding/progressive.py``
-(less its multi-device and precision options): optimise the posteriors
-(phase 1, a fixed number of epochs or up to a plateau), then, level by
-level (hh, h, w for a patch config; w alone otherwise), code every row's
-highest-KL group one step at a time, each step followed by a finetune of
-every level with a fresh Adam (a fixed budget or up to a plateau),
-snapshot along the way, and decode the indices.
+(less its multi-device options): optimise the posteriors (phase 1, a
+fixed number of epochs or up to a plateau), then, level by level (hh, h,
+w for a patch config; w alone otherwise), code every row's highest-KL
+group one step at a time, each step followed by a finetune of every level
+with a fresh Adam (a fixed budget or up to a plateau), snapshot along the
+way, and decode the indices.
 
-Everything runs in exact f32 (TF32 off in cuBLAS and cuDNN; ``optimize``,
-the A* scoring and ``decode`` each set it), which is what the JAX package
-computes on the CPU that the tests compare against. The noise comes from
-one ``torch.Generator`` threaded through every epoch (or, for CRN
-finetunes, a stream derived from its seed); its numbers differ from
-``jax.random``'s, so two packages' encodes of the same data differ sample
-by sample but write the same bitstream and snapshot formats.
+Precision (``utils/platform.py``): phase 1 runs at ``phase1_precision``
+and the coding finetunes at ``coding_precision`` (None: the process's
+ambient, TF32 on the card unless ``--precision highest``; the
+unrounded-PSNR configs' finetunes exact unless 'default' is asked for,
+``resolve_coding_precision``). The A* scoring and ``decode`` are exact f32
+in every mode, as the JAX package's are. On the CPU every mode computes
+the same numbers, which is what the tests compare against the JAX package.
+
+The noise comes from one ``torch.Generator`` threaded through every epoch
+(or, for CRN finetunes, a stream derived from its seed); its numbers
+differ from ``jax.random``'s, so two packages' encodes of the same data
+differ sample by sample but write the same bitstream and snapshot formats.
 """
 
 from __future__ import annotations
@@ -36,9 +41,11 @@ from recombiner_tpu_torch.coding.encoder import (
     optimize_adaptive,
 )
 from recombiner_tpu_torch.config import ModalityConfig
-from recombiner_tpu_torch.device import exact_f32
+from recombiner_tpu_torch.device import precision
 from recombiner_tpu_torch.io import encode_state
-from recombiner_tpu_torch.metrics import metric
+from recombiner_tpu_torch.metrics import UNROUNDED_PSNR, metric
+from recombiner_tpu_torch.utils.timing import sync
+
 
 @dataclasses.dataclass
 class EncodeResult:
@@ -50,19 +57,31 @@ class EncodeResult:
     timings: Dict[str, float]
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def distortion_of(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
                   cfg: ModalityConfig):
     """The metric of one posterior sample (noise from a generator seeded 0),
-    as the JAX package's ``distortion_of`` draws with ``key(0)``."""
+    as the JAX package's ``distortion_of`` draws with ``key(0)``, at the
+    ambient precision as its ``predict`` runs."""
     gen = torch.Generator(device=codec.device).manual_seed(0)
-    with torch.no_grad(), exact_f32():
+    with torch.no_grad(), precision():
         y = predict(codec, state, X, cfg, 1, generator=gen)[:, 0]
     return metric(Y.cpu().numpy(), y.cpu().numpy(), cfg.name)
+
+
+def resolve_coding_precision(coding_precision: Optional[str],
+                             cfg: ModalityConfig) -> Optional[str]:
+    """The per-modality auto of the coding finetunes' precision
+    (``progressive.py:56-78``): ``decode`` renders in exact f32, so the
+    finetunes of the unrounded-PSNR (audio-family) configs run exact too,
+    or the posteriors co-adapt to the TF32 forward and the exact decode
+    renders another function (measured by the JAX package at -1.2/-1.8 dB
+    on audio_mini at 66-71 dB). The sentinel 'default' forces the ambient;
+    any other value is kept."""
+    if coding_precision == "default":
+        return None
+    if coding_precision is None and cfg.name in UNROUNDED_PSNR:
+        return "highest"
+    return coding_precision
 
 
 def kl_bits_summary(codec: Codec, state: CodecState) -> Dict[str, float]:
@@ -96,7 +115,9 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
              finetune_stop: Optional[tuple] = None, phase1_monitor: str = "mse",
              phase1_lr: Optional[tuple] = None, phase1_sample_size: Optional[int] = None,
              fused_steps: Optional[int] = None, finetune_lr: Optional[float] = None,
-             finetune_lr_schedule: Optional[str] = None) -> EncodeResult:
+             finetune_lr_schedule: Optional[str] = None,
+             coding_precision: Optional[str] = None,
+             phase1_precision: Optional[str] = None) -> EncodeResult:
     """Full encode; X (R, P, fourier_dim) and Y (R, P, out) move to the
     codec's device. The knobs are the JAX package's (``progressive.py:
     100-228``):
@@ -119,7 +140,12 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
       report; it changes no number. Unfused, a snapshot follows every
       ``save_every`` groups of a level;
     - ``remat``: every epoch recomputes its forward in its backward
-      (``encoder.elbo_loss``); it changes no number.
+      (``encoder.elbo_loss``); it changes no number;
+    - ``phase1_precision`` and ``coding_precision``: the precision of
+      phase 1 and of every coding finetune (``device.precision``; None the
+      ambient), the latter through ``resolve_coding_precision`` first.
+      The A* scoring and the final ``decode`` are exact in every mode, and
+      the bitstream's format does not depend on either.
 
     Resume: ``phase1_epochs_done``, ``phase1_opt_leaves`` (optax's leaf
     order), ``phase1_es`` and ``resume_generator_state`` continue phase 1
@@ -128,6 +154,7 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
     snapshot's header. Snapshots go through
     ``encode_state.save_encode_state``, looked up at each call."""
     dev = codec.device
+    coding_precision = resolve_coding_precision(coding_precision, cfg)
     X = torch.as_tensor(X, dtype=torch.float32, device=dev)
     Y = torch.as_tensor(Y, dtype=torch.float32, device=dev)
     order = ("hh", "h", "w") if cfg.patch else ("w",)
@@ -183,12 +210,13 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
                 state, opt_state, es, done, stopped = optimize_adaptive(
                     codec, state, X, Y, cfg, generator, done, done + n, min_epochs, rel_tol, es,
                     lr=rate, sample_size=s1, window=window, opt_state=opt_state,
-                    monitor=phase1_monitor, remat=remat)
+                    monitor=phase1_monitor, remat=remat, precision=phase1_precision)
                 extra["phase1_es"] = list(es)
             else:
                 state, opt_state = optimize(codec, state, X, Y, cfg, generator, n_epochs=n,
                                             lr=rate, sample_size=s1, opt_state=opt_state,
-                                            return_opt_state=True, remat=remat)
+                                            return_opt_state=True, remat=remat,
+                                            precision=phase1_precision)
                 done += n
             # after a plateau stop the snapshot says phase 1 is over, as the
             # coding loop's snapshots do, so that a resume does not run on
@@ -199,7 +227,7 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
                       f"{' (plateau stop)' if stopped else ''} "
                       f"({time.perf_counter() - t0:.0f}s)", flush=True)
         timings["phase1_epochs"] = done
-    _sync(dev)
+    sync(state.w.q.loc)
     timings["optimize_s"] = time.perf_counter() - t0
     if verbose:
         d1 = distortion_of(codec, state, X, Y, cfg)
@@ -224,7 +252,7 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
                 codec, state, X, Y, cfg, noise, ft_min, ft_tol, n_steps=k, n_ft=n_ft[level],
                 lr=(finetune_lr or lr) if fused[level] else lr, sample_size=sample_size,
                 window=int(ft_w), lr_schedule=finetune_lr_schedule if fused[level] else None,
-                level=level, remat=remat)
+                level=level, remat=remat, precision=coding_precision)
             step_i += k
             timings["finetune_budget"] += n_ft[level] * k
             timings["finetune_epochs"] += int(ran.sum())
@@ -238,7 +266,7 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
             if fused[level] or step_i % save_every == 0:
                 snapshot(state, {"level": level, "step": step_i - 1,
                                  "phase1_epochs_done": n_optimize_epochs})
-    _sync(dev)
+    sync(state.w.indices)
     timings["code_s"] = time.perf_counter() - t1
     indices = {name: state.level(name).indices.cpu().numpy().astype(np.int32)
                for name in codec.level_names}

@@ -3,9 +3,11 @@
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Union
+from typing import Iterator, Optional, Union
 
 import torch
+
+from recombiner_tpu_torch.utils import platform
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -23,19 +25,28 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 @contextlib.contextmanager
-def exact_f32() -> Iterator[None]:
-    """Exact f32 products in cuBLAS and cuDNN (TF32 off) for the duration.
-
-    The JAX package evaluates decode at precision='highest'
-    (recombiner_tpu/coding/encoder.py:980-1004); torch's default
-    ``cudnn.allow_tf32=True`` would put the conv stack on TF32."""
+def precision(mode: Optional[str] = None) -> Iterator[None]:
+    """TF32 on or off in cuBLAS and cuDNN for the duration, restored after:
+    off for 'highest', on for 'high' and 'default', and for None as the
+    process's ambient says (``utils/platform.py``: TF32 unless
+    ``apply_matmul_precision('highest')``). Torch's own defaults (cuDNN
+    TF32 on, cuBLAS off) never decide a product of the port's."""
+    tf32 = not platform.is_exact(mode)
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def exact_f32() -> contextlib.AbstractContextManager:
+    """Exact f32 products in cuBLAS and cuDNN (TF32 off) for the duration,
+    whatever the mode: the exact surfaces, as the JAX package evaluates
+    A* scoring and decode at precision='highest'
+    (recombiner_tpu/coding/encoder.py:738-752, 980-1004)."""
+    return precision("highest")
 
 
 @contextlib.contextmanager

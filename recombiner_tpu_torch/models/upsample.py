@@ -148,10 +148,11 @@ def _phased_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
     """x (N, cin, *S) -> nearest-upsample(factors) + conv(k, pad p) + bias,
     as one conv on the source grid with prod(f) * cout output channels and
     a depth-to-space step. The phase kernel is M times the learned kernel
-    (an f32 product, which the caller's exact_f32 keeps exact on the
-    card). Output channels are cout-major, phase-minor (the JAX rewrite
-    orders them phase-major and transposes, ``phase_upsample.py:86-118``:
-    the same interleave). The bias is broadcast over the phases with
+    (an f32 product, at the caller's precision on the card: exact under
+    ``exact_f32``, TF32 at the ambient). Output channels are cout-major,
+    phase-minor (the JAX rewrite orders them phase-major and transposes,
+    ``phase_upsample.py:86-118``: the same interleave). The bias is
+    broadcast over the phases with
     ``expand``, whose gradient is an ordered sum (``repeat_interleave``'s
     would be an ``index_add``, atomic on CUDA), so a training epoch
     repeats bit for bit."""

@@ -18,10 +18,12 @@ explicit device, noise from an explicit ``torch.Generator``).
   and ``inr_forward_fused``, so that every epoch on the card launches the
   ``siren_fwd`` and ``siren_bwd`` kernels, and the gradients reach the A
   matrices (cuBLAS) and the conv weights and biases (cuDNN's weight
-  gradient). Epochs run in exact f32 (``device.exact_f32``) on
-  deterministic cuDNN algorithms (``device.deterministic_convs``); with no
-  atomics on the path, an EM run repeats bit for bit on one card given its
-  generator state.
+  gradient). Epochs run at the process's ambient precision
+  (``device.precision()``: TF32 on the card unless ``--precision
+  highest`` made it exact, as the JAX trainer inherits
+  ``jax_default_matmul_precision``) on deterministic cuDNN algorithms
+  (``device.deterministic_convs``); with no atomics on the path, an EM run
+  repeats bit for bit on one card given its generator state.
 
 Noise: a ``NoiseSource`` is a ``torch.Generator``, from which every epoch
 draws its standard-normal noise in the order the JAX package splits its
@@ -42,7 +44,7 @@ import torch
 
 from recombiner_tpu_torch.coding.encoder import adam_init, adam_step
 from recombiner_tpu_torch.config import ModalityConfig
-from recombiner_tpu_torch.device import DeviceLike, deterministic_convs, exact_f32, resolve_device
+from recombiner_tpu_torch.device import DeviceLike, deterministic_convs, precision, resolve_device
 from recombiner_tpu_torch.models.gaussian import (
     Gaussian,
     NaturalGaussian,
@@ -230,12 +232,13 @@ def sgd_epochs(state: PriorState, X: torch.Tensor, Y: torch.Tensor, priors: Prio
     epochs of ``mse * R + kl_beta * KL`` at S = 1, Adam fresh in each call
     (the reference re-creates it per EM iteration). With ``train_mappings``
     off only the posteriors move. Returns the new state (the input's tensors
-    are not changed) and the last epoch's (mse, KL)."""
+    are not changed) and the last epoch's (mse, KL). Runs at the ambient
+    precision, on deterministic cuDNN algorithms."""
     beta = float(np.float32(kl_beta))
     leaves = [t.detach().clone().requires_grad_() for t in state.leaves(train_mappings)]
     opt = adam_init(leaves)
     mse = kl = None
-    with exact_f32(), deterministic_convs():
+    with precision(), deterministic_convs():
         for _ in range(n_epochs):
             s = state.with_leaves(leaves, train_mappings)
             y_hat = forward(s, X, cfg, noise=_epoch_noise(source, s, cfg))[:, 0]

@@ -44,6 +44,7 @@ from recombiner_tpu_torch.io import bitstream, checkpoint, convert
 from recombiner_tpu_torch.metrics import metric
 from recombiner_tpu_torch.models.gaussian import Gaussian, kl_gaussian
 from recombiner_tpu_torch.priors.grouping import compute_grouping
+from recombiner_tpu_torch.utils import platform
 
 DECODE_TOL = dict(atol=3e-5, rtol=1e-5)
 R, S = 3, 2
@@ -371,8 +372,10 @@ def test_predict_sample_form_matches_jax(setup):
 
 
 def test_optimize_runs_in_exact_f32(setup, monkeypatch):
-    """TF32 is off in cuBLAS and cuDNN for every epoch, whatever the caller
-    had set, and restored after."""
+    """With ``precision='highest'``, or with None under an exact ambient
+    (``--precision highest``), TF32 is off in cuBLAS and cuDNN for every
+    epoch, whatever the caller had set, and restored after; with None under
+    the default ambient it is on (TF32, the card's ambient f32)."""
     _, art, _, jstate, codec, X, Y = setup
     seen = []
     loss = encoder.elbo_loss
@@ -384,11 +387,23 @@ def test_optimize_runs_in_exact_f32(setup, monkeypatch):
     monkeypatch.setattr(encoder, "elbo_loss", spy)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
-    encoder.optimize(codec, convert.codec_state_from(jstate, "cpu"), torch.from_numpy(X),
-                     torch.from_numpy(Y), art.config, torch.Generator(), n_epochs=2,
-                     sample_size=1)
+    monkeypatch.setattr(platform, "AMBIENT", "high")
+
+    def run(precision):
+        encoder.optimize(codec, convert.codec_state_from(jstate, "cpu"), torch.from_numpy(X),
+                         torch.from_numpy(Y), art.config, torch.Generator(), n_epochs=2,
+                         sample_size=1, precision=precision)
+
+    run("highest")
     assert seen == [(False, False)] * 2
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run(None)
+    assert seen[2:] == [(True, True)] * 2
+    platform.apply_matmul_precision("highest")
+    run(None)
+    assert seen[4:] == [(False, False)] * 2
+    assert not torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
 
 
 @pytest.mark.parametrize("adaptive", [False, True])
@@ -426,6 +441,10 @@ _CLI_BASE = ["--test_dir", "d", "--test_idx", "0", "--prior_path", "p.npz", "--s
     ["--no-finetune_crn"],
     ["--no-remat", "--no-finetune_crn", "--sync_every", "1", "--save_every", "10",
      "--p1_monitor", "mse", "--fused_steps", "8", "--n_devices", "1", "--precision", "highest"],
+    ["--precision", "scoped"],
+    ["--precision", "scoped_high"],
+    ["--precision", "default"],
+    ["--precision", "high"],
 ])
 def test_cli_takes_the_jax_clis_reference_invocations(extra):
     """The JAX CLI's default invocation and its --no-* forms parse in both
@@ -439,14 +458,14 @@ def test_cli_takes_the_jax_clis_reference_invocations(extra):
 
 
 @pytest.mark.parametrize("extra,queue", [
-    (["--precision", "scoped"], "precision modes"),
     (["--n_devices", "2"], "scale-out"),
-    (["--precision", "default"], "precision modes"),
 ])
 def test_cli_raises_on_each_value_the_port_does_not_run(extra, queue):
     """Each value that would change what the port runs raises before any
     work, naming its flag and the queue that ports it; the JAX CLI parses
-    the same invocation."""
+    the same invocation. Since the precision slice, only ``--n_devices``
+    above 1 is left (``test_torch_precision.py`` runs every
+    ``--precision``)."""
     jax_compress_cli.parse_args(_CLI_BASE + extra)
     with pytest.raises(NotImplementedError, match=extra[0]) as e:
         compress_cli.main(_CLI_BASE + extra)

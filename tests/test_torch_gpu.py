@@ -22,10 +22,12 @@ import torch
 from recombiner_tpu_torch.coding.decoder import decode, init_codec
 from recombiner_tpu_torch.coding.encoder import encode_step
 from recombiner_tpu_torch.config import CIFAR, KODAK, TINY
+from recombiner_tpu_torch import device
 from recombiner_tpu_torch.device import exact_f32
 from recombiner_tpu_torch.models.gaussian import Gaussian
 from recombiner_tpu_torch.models.inr import inr_forward
 from recombiner_tpu_torch.ops import fused_inr
+from recombiner_tpu_torch.utils import platform
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -34,9 +36,11 @@ BWD_OF_MAX = 2e-4
 
 @pytest.fixture
 def cuda():
+    """The card, with the ambient precision exact (``--precision highest``)
+    and TF32 off: every comparison here holds the card to exact f32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    with exact_f32():
+    with platform.ambient("highest"), exact_f32():
         yield torch.device("cuda")
 
 
@@ -446,3 +450,68 @@ def test_training_gradients_of_a_and_the_conv_stack_match_the_plain_chain(cuda, 
         grads.append(torch.autograd.grad(loss, leaves)[2 * len(st.posteriors()):])
     for k, (got, want) in enumerate(zip(*grads, strict=True)):
         _assert_close_of_max(got, want, f"mapping leaf {k}")
+
+
+def _f64_gap(got, a, b, fn):
+    want = fn(a.double(), b.double())
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+def test_precision_scopes_set_tf32_on_the_card(cuda):
+    """``device.precision``'s two levels on the card: under 'high' (and under
+    None with the ambient TF32) cuBLAS and cuDNN run f32 products as TF32,
+    more than 10 times further from an f64 evaluation than under 'highest',
+    which is exact f32; the flags are restored after each scope."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn(512, 512, generator=g, device=cuda)
+    b = torch.randn(512, 512, generator=g, device=cuda)
+    x = torch.randn(8, 64, 32, 32, generator=g, device=cuda)
+    w = torch.randn(64, 64, 3, 3, generator=g, device=cuda)
+
+    def gaps(scope):
+        with scope:
+            return (_f64_gap(a @ b, a, b, torch.matmul),
+                    _f64_gap(torch.nn.functional.conv2d(x, w, padding=1), x, w,
+                             lambda u, v: torch.nn.functional.conv2d(u, v, padding=1)))
+
+    exact = gaps(device.precision("highest"))
+    tf32 = gaps(device.precision("high"))
+    with platform.ambient("high"):
+        ambient = gaps(device.precision())
+    assert exact[0] < 1e-5 and exact[1] < 1e-5, exact
+    for got in (tf32, ambient):
+        assert got[0] > 10 * exact[0] and got[1] > 10 * exact[1], (got, exact)
+    assert not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32)
+
+
+def test_decode_runs_on_deterministic_algorithms_on_the_card(cuda, monkeypatch):
+    """``decode`` runs its render with cuDNN restricted to deterministic
+    algorithms and TF32 off, whatever the ambient and the caller's flags,
+    restores them after, and two decodes are bitwise equal."""
+    from chip_smoke import make_cifar_artifact
+    from recombiner_tpu_torch.coding import decoder
+    from recombiner_tpu_torch.coords import grid_fourier_features
+
+    seen = []
+    predict = decoder.predict
+
+    def spy(*a, **kw):
+        seen.append((torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32))
+        return predict(*a, **kw)
+
+    monkeypatch.setattr(decoder, "predict", spy)
+    art = make_cifar_artifact(1)
+    cfg = art.config
+    R = 16
+    idx = {"w": np.random.default_rng(2).integers(0, 2**16, (R, art.w.grouping.n_groups))}
+    feats = torch.from_numpy(grid_fourier_features(cfg.pixel_sizes, cfg.fourier_dim))
+    X = feats.expand(R, *feats.shape).to(cuda)
+    codec = init_codec(art, R)[0]
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    with platform.ambient("high"), device.precision("high"):
+        ys = [decode(codec, idx, X, cfg) for _ in range(2)]
+        after = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32)
+    assert seen == [(True, False, False)] * 2
+    assert after == (False, True)
+    assert torch.equal(ys[0], ys[1])
