@@ -7,7 +7,8 @@ geometry: decode, encode, remat, and a crash and a resume; then audio,
 video and protein at theirs (the 1-D and 3-D conv stacks): decode,
 encode and the media export, and for video remat and a resume; then prior
 training: cli.train and cli.rd_sweep on CIFAR at R = 2,000, and Kodak's
-three levels.
+three levels; then scale-out: the CLIs at world size 1 on NCCL, and two
+ranks on the one card over gloo.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -139,7 +140,31 @@ caught and passed over but the crashes phase 12 simulates):
    ``utils.tracing.trace`` (the trace names siren_bwd); ``blocked_inr``
    against ``inr_forward_fused`` at R = 500, S = 5; the CIFAR decode check
    repeated DECODE_REPEATS times on deterministic cuDNN algorithms and on
-   cuDNN's own choice, with the decode wall under each.
+   cuDNN's own choice, with the decode wall under each;
+25. scale-out, world size 1 on NCCL: cli.train with phase 19's argv and
+   cli.compress at CIFAR R = 500, S = 5 (the encode slice's cut depth, on
+   500 PNGs from --seed) each run in a subprocess under torchrun's
+   environment with ``--n_devices 1`` (the group's start-up and its first
+   collective timed; the subprocess zeroes its launch counts just before
+   the CLI's main and prints them just after, held to the epochs), each
+   bitwise equal to the same CLI run with no process group: the
+   artifact, the CSVs and bitstream, the reconstruction, the launches;
+26. scale-out, world size 2 on the one card: two ranks spawned over gloo
+   (NCCL refuses two ranks on one device; CUDA tensors staged through host
+   memory) run ``scaleout_rank``: em_train at CIFAR R = 2,000 (SCALE_EM)
+   and progressive.compress at R = 500, each twice, under --precision
+   highest and at the ambient (TF32): launches equal to the epochs on both
+   ranks, the A and conv weights bitwise equal on both, the two runs
+   bitwise equal, rank 0's bitstreams decoded in one process within
+   DECODE_TOL; exact, training within the trained-state bound of world
+   size 1 and the encode's indices at least 98% equal to world size 1's
+   (the JAX package's bar); at the ambient, the encode's indices at least
+   1 - 2 (1 - a) equal to world size 1's, where a is the agreement of world
+   size 1's own ambient encode with its initial posteriors nudged by 1e-7;
+   the PSNR within 0.3 dB in both modes; each rank's train_epoch_s,
+   epoch_s, time in collectives and peak memory (one shared card: not a
+   scale-out speed). ``scripts/torch_scaleout.py`` runs the same rank
+   function over NCCL, one card a rank.
 
 Precision: everything a user runs (encodes, epochs, training) runs at the
 ambient TF32, as the CLIs' default does; A* scoring and decode are exact in
@@ -153,7 +178,8 @@ and QUALITY for the presets (``recombiner_tpu_torch/cli/compress.py``);
 CUT_* for Kodak, audio, video and protein (full widths and geometry,
 every group of every level coded); TRAIN_* for prior training (the
 reference's 550 EM iterations of 200 / 100 epochs cut to 4 of 20 / 10 at
-CIFAR's full widths and R = 2,000).
+CIFAR's full widths and R = 2,000); SCALE_EM for the world-2 training (2
+EM iterations of 3 epochs).
 
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -171,6 +197,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -180,6 +207,7 @@ import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
+from recombiner_tpu_torch.cli import compress as compress_cli
 from recombiner_tpu_torch.cli import decompress as decompress_cli
 from recombiner_tpu_torch.cli import rd_sweep
 from recombiner_tpu_torch.cli import train as train_cli
@@ -210,6 +238,7 @@ from recombiner_tpu_torch.models.upsample import apply_upsample, apply_upsample_
 from recombiner_tpu_torch.ops import _build
 from recombiner_tpu_torch.ops import fused_inr
 from recombiner_tpu_torch.ops.blocked_inr import inr_forward_blocked
+from recombiner_tpu_torch.parallel import launch
 from recombiner_tpu_torch.priors import trainer
 from recombiner_tpu_torch.priors.artifact import build_prior_artifact
 from recombiner_tpu_torch.priors.grouping import compute_grouping
@@ -1164,6 +1193,7 @@ def determinism(codec, state0, X, Y, cfg, seed: int) -> dict:
 TRAIN_ROWS = 2000
 TRAIN_EM = ["--n_em_iters", "4", "--first_epochs", "20", "--later_epochs", "10"]
 TRAIN_CHUNKS = trainer.em_chunks(4, 10, 20, 10)
+TRAIN_EPOCHS = sum(n * e for n, e in TRAIN_CHUNKS)
 TRAIN_BITRATE = 2.0
 KODAK_TRAIN_IMAGES = 4
 KODAK_TRAIN = KODAK
@@ -1297,345 +1327,784 @@ def replaced(module, name: str, fn):
         setattr(module, name, saved)
 
 
-def train_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
+def train_phases(seed: int, card: str, errs: list, bwd_errs: list, tmp_root: str) -> dict:
     """Prior training on the card: cli.train at CIFAR R = 2,000 on PNGs from
     ``seed``, the trained prior decoded card against CPU; an epoch's time,
     profile and peak memory; determinism (two runs, a save and load, card
     against CPU); cli.rd_sweep (train, encode every group, a crash after
-    the first train-state snapshot resumed twice); Kodak's three levels."""
+    the first train-state snapshot resumed twice); Kodak's three levels.
+    The PNGs and cli.train's argv and artifact stay in ``tmp_root`` for
+    the scale-out phases."""
     cfg = CIFAR
     out = {}
-    tmp_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        with phase("CIFAR train"):
-            train_dir = os.path.join(tmp_root, "train")
-            os.makedirs(train_dir)
-            t0 = time.perf_counter()
-            for i, img in enumerate(smooth_images(TRAIN_ROWS, seed + 7)):
-                export.write_png(os.path.join(train_dir, f"{i:04d}.png"), img)
-            png_s = time.perf_counter() - t0
-            saving = os.path.join(tmp_root, "prior")
-            zero_launches()
-            t0 = time.perf_counter()
-            res = train_cli.main(["--train_dir", train_dir, "--dataset", "cifar",
-                                  "--train_size", str(TRAIN_ROWS), "--max_bitrate",
-                                  str(TRAIN_BITRATE), "--saving_dir", saving,
-                                  "--seed", str(seed), *TRAIN_EM])
-            torch.cuda.synchronize()
-            train_s = time.perf_counter() - t0
-            epochs = sum(n * e for n, e in TRAIN_CHUNKS)
-            launched = dict(fused_inr.launches)
-            print(f"kernel launches in cli.train: {launched}; epochs run {epochs}, log forwards "
-                  f"{len(TRAIN_CHUNKS)} (chunks {TRAIN_CHUNKS})")
-            if (launched["siren_bwd"] != epochs
-                    or launched["siren_fwd"] != epochs + len(TRAIN_CHUNKS)):
-                raise AssertionError("cli.train did not launch siren_bwd once per epoch and "
-                                     "siren_fwd once per epoch and once per log forward")
-            stem = f"train_size_{TRAIN_ROWS}_max_bitrate={TRAIN_BITRATE:.3f}"
-            art = load_prior_artifact(os.path.join(saving, f"PRIOR_{stem}.npz"))
-            g = art.w.grouping
-            gmax = decoder._round_up(g.max_group_size)
-            print(f"cli.train CIFAR R={TRAIN_ROWS} ({png_s:.2f} s to write the PNGs): wall "
-                  f"{train_s:.3f} s; last record {res.elbo_history[-1]}; artifact "
-                  f"{g.n_groups} groups, largest {g.max_group_size} (Gmax {gmax}), "
-                  f"{cfg.bitrate_of_groups(g.n_groups):.4f} bpp at target {TRAIN_BITRATE} "
-                  f"[{card}]")
-            codec, _ = init_codec(art, 8)
-            rng = np.random.default_rng(seed)
-            idx = {"w": rng.integers(0, 2**cfg.bits_per_group, (8, g.n_groups))}
-            feats = grid_fourier_features(cfg.pixel_sizes, cfg.fourier_dim)
-            X8 = np.ascontiguousarray(np.broadcast_to(feats, (8, *feats.shape)))
-            y = decode(codec, idx, X8, cfg).cpu()
-            y_cpu = decode(init_codec(art, 8, device="cpu")[0], idx, X8, cfg)
-            derr = (y - y_cpu).abs().max().item()
-            print(f"trained prior decode, 8 rows, card vs CPU: max abs diff {derr:.3e} (atol "
-                  f"{DECODE_TOL['atol']}, rtol {DECODE_TOL['rtol']})")
-            torch.testing.assert_close(y, y_cpu, **DECODE_TOL)
-            out["cifar_train"] = {"wall_s": train_s, "groups": g.n_groups, "gmax": gmax,
-                                  "launches": launched, "decode_err": derr}
-            del codec
+    with phase("CIFAR train"):
+        train_dir = os.path.join(tmp_root, "train")
+        os.makedirs(train_dir)
+        t0 = time.perf_counter()
+        for i, img in enumerate(smooth_images(TRAIN_ROWS, seed + 7)):
+            export.write_png(os.path.join(train_dir, f"{i:04d}.png"), img)
+        png_s = time.perf_counter() - t0
+        saving = os.path.join(tmp_root, "prior")
+        zero_launches()
+        t0 = time.perf_counter()
+        train_argv = ["--train_dir", train_dir, "--dataset", "cifar", "--train_size",
+                      str(TRAIN_ROWS), "--max_bitrate", str(TRAIN_BITRATE), "--saving_dir",
+                      saving, "--seed", str(seed), *TRAIN_EM]
+        res = train_cli.main(train_argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launched = dict(fused_inr.launches)
+        check_train_launches(launched, "cli.train")
+        stem = f"train_size_{TRAIN_ROWS}_max_bitrate={TRAIN_BITRATE:.3f}"
+        art = load_prior_artifact(os.path.join(saving, f"PRIOR_{stem}.npz"))
+        g = art.w.grouping
+        gmax = decoder._round_up(g.max_group_size)
+        print(f"cli.train CIFAR R={TRAIN_ROWS} ({png_s:.2f} s to write the PNGs): wall "
+              f"{train_s:.3f} s; last record {res.elbo_history[-1]}; artifact "
+              f"{g.n_groups} groups, largest {g.max_group_size} (Gmax {gmax}), "
+              f"{cfg.bitrate_of_groups(g.n_groups):.4f} bpp at target {TRAIN_BITRATE} "
+              f"[{card}]")
+        codec, _ = init_codec(art, 8)
+        rng = np.random.default_rng(seed)
+        idx = {"w": rng.integers(0, 2**cfg.bits_per_group, (8, g.n_groups))}
+        feats = grid_fourier_features(cfg.pixel_sizes, cfg.fourier_dim)
+        X8 = np.ascontiguousarray(np.broadcast_to(feats, (8, *feats.shape)))
+        y = decode(codec, idx, X8, cfg).cpu()
+        y_cpu = decode(init_codec(art, 8, device="cpu")[0], idx, X8, cfg)
+        derr = (y - y_cpu).abs().max().item()
+        print(f"trained prior decode, 8 rows, card vs CPU: max abs diff {derr:.3e} (atol "
+              f"{DECODE_TOL['atol']}, rtol {DECODE_TOL['rtol']})")
+        torch.testing.assert_close(y, y_cpu, **DECODE_TOL)
+        out["cifar_train"] = {"wall_s": train_s, "groups": g.n_groups, "gmax": gmax,
+                              "launches": launched, "decode_err": derr, "argv": train_argv,
+                              "train_dir": train_dir,
+                              "prior": os.path.join(saving, f"PRIOR_{stem}.npz")}
+        del codec
 
-        X_np, Y_np = load_training_set(train_dir, cfg, seed, TRAIN_ROWS)
-        X, Y = torch.from_numpy(X_np).cuda(), torch.from_numpy(Y_np).cuda()
-        state, priors, beta = res.state, res.priors, res.kl_beta
-        gen = torch.Generator(device="cuda").manual_seed(seed)
+    X_np, Y_np = load_training_set(train_dir, cfg, seed, TRAIN_ROWS)
+    X, Y = torch.from_numpy(X_np).cuda(), torch.from_numpy(Y_np).cuda()
+    state, priors, beta = res.state, res.priors, res.kl_beta
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
-        def sgd(n, st=state, source=gen):
-            return trainer.sgd_epochs(st, X, Y, priors, beta, source, cfg=cfg, n_epochs=n,
-                                      lr=TRAIN_LR)
+    def sgd(n, st=state, source=gen):
+        return trainer.sgd_epochs(st, X, Y, priors, beta, source, cfg=cfg, n_epochs=n,
+                                  lr=TRAIN_LR)
 
-        with phase("train timing"):
-            sgd(2)
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            sgd(1)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-            t0 = time.perf_counter()
-            sgd(10)
-            torch.cuda.synchronize()
-            epoch_s = (time.perf_counter() - t0) / 10
-            busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: sgd(10), 1)
-            parts = epoch_parts(by_kernel)
-            pieces = epoch_pieces(state, cfg, gen)
-            device_ms = busy_us / 1e4
-            print(f"train_epoch_s {epoch_s:.6f} (CIFAR R={TRAIN_ROWS}, S=1, mean of 10 warm "
-                  f"epochs); peak device memory of an epoch {peak / 2**20:.1f} MiB "
-                  f"({base / 2**20:.1f} MiB allocated before it) [{card}]")
-            print(f"10 epochs under the profiler: {device_ms:.3f} ms device time per epoch in "
-                  f"{wall_us / 1e4:.3f} ms wall, idle share {1 - busy_us / wall_us:.4f}; by "
-                  "kernel name:")
-            for name, us in parts.items():
-                print(f"  {us / 1e4:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name}")
-            print("the pieces on their own by CUDA events, against the epoch's device time:")
-            for name, ms_ in pieces.items():
-                print(f"  {ms_:8.4f} ms {100 * ms_ / device_ms:5.1f}%  {name}")
-            for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
-                print(f"  {us / 1e4:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name[:100]}")
-            # the same under --precision highest (exact f32): what TF32 moved
-            with platform.ambient("highest"):
-                busy_hi, wall_hi, by_kernel_hi = device_time_by_kernel(lambda: sgd(10), 1)
-            parts_hi = epoch_parts(by_kernel_hi)
-            print(f"under --precision highest: {busy_hi / 1e4:.3f} ms device time per epoch in "
-                  f"{wall_hi / 1e4:.3f} ms wall; by kernel name:")
-            for name, us in parts_hi.items():
-                print(f"  {us / 1e4:8.4f} ms/epoch {100 * us / busy_hi:5.1f}%  {name}")
-            epoch_by_mode = by_mode(lambda: wall_s(lambda: sgd(10), 1) / 10)
-            print(mode_line(f"train_epoch_s (CIFAR R={TRAIN_ROWS}, S=1, 10 warm epochs)",
-                            epoch_by_mode) + f" [{card}]")
-            with exact_f32():
-                fwd, bwd = kernel_checks(art, TRAIN_ROWS, 1, gen, card, errs, bwd_errs,
-                                         "CIFAR train")
-            out["timing"] = {"train_epoch_s": epoch_s, "peak_mib": peak / 2**20,
-                             "device_ms": busy_us / 1e4, "idle": 1 - busy_us / wall_us,
-                             "parts_ms": {k: v / 1e4 for k, v in parts.items()},
-                             "pieces_ms": pieces, "siren_fwd": fwd, "siren_bwd": bwd,
-                             "train_epoch_s_by_mode": epoch_by_mode,
-                             "device_ms_highest": busy_hi / 1e4,
-                             "parts_ms_highest": {k: v / 1e4 for k, v in parts_hi.items()}}
+    with phase("train timing"):
+        sgd(2)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sgd(1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        sgd(10)
+        torch.cuda.synchronize()
+        epoch_s = (time.perf_counter() - t0) / 10
+        busy_us, wall_us, by_kernel = device_time_by_kernel(lambda: sgd(10), 1)
+        parts = epoch_parts(by_kernel)
+        pieces = epoch_pieces(state, cfg, gen)
+        device_ms = busy_us / 1e4
+        print(f"train_epoch_s {epoch_s:.6f} (CIFAR R={TRAIN_ROWS}, S=1, mean of 10 warm "
+              f"epochs); peak device memory of an epoch {peak / 2**20:.1f} MiB "
+              f"({base / 2**20:.1f} MiB allocated before it) [{card}]")
+        print(f"10 epochs under the profiler: {device_ms:.3f} ms device time per epoch in "
+              f"{wall_us / 1e4:.3f} ms wall, idle share {1 - busy_us / wall_us:.4f}; by "
+              "kernel name:")
+        for name, us in parts.items():
+            print(f"  {us / 1e4:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name}")
+        print("the pieces on their own by CUDA events, against the epoch's device time:")
+        for name, ms_ in pieces.items():
+            print(f"  {ms_:8.4f} ms {100 * ms_ / device_ms:5.1f}%  {name}")
+        for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
+            print(f"  {us / 1e4:8.4f} ms/epoch {100 * us / busy_us:5.1f}%  {name[:100]}")
+        # the same under --precision highest (exact f32): what TF32 moved
+        with platform.ambient("highest"):
+            busy_hi, wall_hi, by_kernel_hi = device_time_by_kernel(lambda: sgd(10), 1)
+        parts_hi = epoch_parts(by_kernel_hi)
+        print(f"under --precision highest: {busy_hi / 1e4:.3f} ms device time per epoch in "
+              f"{wall_hi / 1e4:.3f} ms wall; by kernel name:")
+        for name, us in parts_hi.items():
+            print(f"  {us / 1e4:8.4f} ms/epoch {100 * us / busy_hi:5.1f}%  {name}")
+        epoch_by_mode = by_mode(lambda: wall_s(lambda: sgd(10), 1) / 10)
+        print(mode_line(f"train_epoch_s (CIFAR R={TRAIN_ROWS}, S=1, 10 warm epochs)",
+                        epoch_by_mode) + f" [{card}]")
+        with exact_f32():
+            fwd, bwd = kernel_checks(art, TRAIN_ROWS, 1, gen, card, errs, bwd_errs,
+                                     "CIFAR train")
+        out["timing"] = {"train_epoch_s": epoch_s, "peak_mib": peak / 2**20,
+                         "device_ms": busy_us / 1e4, "idle": 1 - busy_us / wall_us,
+                         "parts_ms": {k: v / 1e4 for k, v in parts.items()},
+                         "pieces_ms": pieces, "siren_fwd": fwd, "siren_bwd": bwd,
+                         "train_epoch_s_by_mode": epoch_by_mode,
+                         "device_ms_highest": busy_hi / 1e4,
+                         "parts_ms_highest": {k: v / 1e4 for k, v in parts_hi.items()}}
 
-        with phase("train determinism"):
-            lo, hi = cfg.bits_budget(TRAIN_BITRATE)
+    with phase("train determinism"):
+        lo, hi = cfg.bits_budget(TRAIN_BITRATE)
 
-            def em(st, pr, b, g, n=2):
-                return trainer.em_iters(st, X, Y, pr, b, g, lo, hi, cfg=cfg, n_iters=n,
-                                        n_epochs=3, lr=TRAIN_LR)
+        def em(st, pr, b, g, n=2):
+            return trainer.em_iters(st, X, Y, pr, b, g, lo, hi, cfg=cfg, n_iters=n,
+                                    n_epochs=3, lr=TRAIN_LR)
 
-            g_state = gen.get_state()
-            runs = []
-            for _ in range(2):
-                gen.set_state(g_state)
-                runs.append(em(state, priors, beta, gen))
-            equal_runs = (same_state(runs[0][0], runs[1][0])
-                          and all(torch.equal(a, b) for a, b in zip(runs[0][1].leaves(),
-                                                                      runs[1][1].leaves()))
-                          and runs[0][2] == runs[1][2])
-
-            def weight_grads():
-                leaves = [t.detach().clone().requires_grad_() for t in state.leaves()]
-                s = state.with_leaves(leaves)
-                g = torch.Generator(device="cuda").manual_seed(seed)
-                with precision(), deterministic_convs():
-                    y_hat = trainer.forward(s, X, cfg, generator=g)[:, 0]
-                    loss = (torch.mean((y_hat - Y) ** 2) * TRAIN_ROWS
-                            + beta * trainer.total_kl(s, priors))
-                    return torch.autograd.grad(loss, leaves)
-
-            ga, gb = weight_grads(), weight_grads()
-            equal_grads = all(torch.equal(a, b) for a, b in zip(ga, gb))
-            n_post = 2 * len(state.posteriors())
-            del ga, gb
-            st1, pr1, beta1, _ = runs[0]
-            path = os.path.join(tmp_root, "ts.npz")
-            train_state.save_train_state(path, st1, pr1, float(beta1), 2)
-            st_l, pr_l, beta_l, done_l, _ = train_state.load_train_state(path, cfg, "cuda")
+        g_state = gen.get_state()
+        runs = []
+        for _ in range(2):
             gen.set_state(g_state)
-            cont_mem = em(st1, pr1, beta1, gen, 1)
-            gen.set_state(g_state)
-            cont_disk = em(st_l, pr_l, beta_l, gen, 1)
-            equal_resume = (same_state(cont_mem[0], cont_disk[0]) and cont_mem[2] == cont_disk[2]
-                            and done_l == 2)
-            print(f"two 2-iteration em_iters runs (3 epochs each) from one state and generator "
-                  f"state, R={TRAIN_ROWS}: bitwise equal {equal_runs}; the loss's gradients "
-                  f"twice, the {len(state.leaves()) - n_post} A and conv weight and bias leaves "
-                  f"included: bitwise equal {equal_grads}; a train state saved, loaded and "
-                  f"continued vs continued in memory: bitwise equal {equal_resume} [{card}]")
-            if not (equal_runs and equal_grads and equal_resume):
-                raise AssertionError("training on the card does not repeat bit for bit")
-            del runs, cont_mem, cont_disk, st_l, pr_l
-            # one epoch at R = 64 from one state and one noise draw, card vs CPU,
-            # under --precision highest (exact f32 on the card, as the CPU computes)
-            rows = slice(0, 64)
-            small = trainer.PriorState(
-                w=trainer.Gaussian(state.w.loc[rows], state.w.log_scale[rows]),
-                lpe=trainer.Gaussian(state.lpe.loc[rows], state.lpe.log_scale[rows]),
-                h=None, hh=None, A=state.A, up=state.up)
-            noise = trainer.draw_noise(small, cfg, 1, torch.Generator(device="cuda")
-                                       .manual_seed(seed))
-            small_cpu, pr_cpu = small.to("cpu"), priors.to("cpu")
-            with platform.ambient("highest"):
-                card_out = trainer.sgd_epochs(small, X[rows], Y[rows], priors, beta,
-                                              lambda: noise, cfg=cfg, n_epochs=1, lr=TRAIN_LR)
-            cpu_out = trainer.sgd_epochs(small_cpu, torch.from_numpy(X_np[rows]),
-                                         torch.from_numpy(Y_np[rows]), pr_cpu, beta,
-                                         lambda: [n.cpu() for n in noise], cfg=cfg,
-                                         n_epochs=1, lr=TRAIN_LR)
-            worst = states_close(card_out[0], cpu_out[0], small_cpu, 1)
-            m_err = abs(card_out[1].mse.item() / cpu_out[1].mse.item() - 1)
-            k_err = abs(card_out[1].kl.item() / cpu_out[1].kl.item() - 1)
-            print(f"one epoch at R=64 from one state and one noise draw, card (--precision "
-                  f"highest) vs CPU: mse "
-                  f"relative diff {m_err:.3e}, KL {k_err:.3e} (rtol 1e-4); every leaf within "
-                  f"{worst:.3f} of its bound (1e-6 of its norm + 1e-2 of the change's, every "
-                  f"element within 2 lr) [{card}]")
-            if m_err > 1e-4 or k_err > 1e-4:
-                raise AssertionError("one epoch on the card differs from the CPU's")
-            out["determinism"] = {"runs": equal_runs, "grads": equal_grads,
-                                  "resume": equal_resume, "card_vs_cpu_of_bound": worst,
-                                  "mse_rel": m_err, "kl_rel": k_err}
+            runs.append(em(state, priors, beta, gen))
+        equal_runs = (same_state(runs[0][0], runs[1][0])
+                      and all(torch.equal(a, b) for a, b in zip(runs[0][1].leaves(),
+                                                                  runs[1][1].leaves()))
+                      and runs[0][2] == runs[1][2])
 
-        with phase("rd_sweep"):
-            got = {}
+        def weight_grads():
+            leaves = [t.detach().clone().requires_grad_() for t in state.leaves()]
+            s = state.with_leaves(leaves)
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            with precision(), deterministic_convs():
+                y_hat = trainer.forward(s, X, cfg, generator=g)[:, 0]
+                loss = (torch.mean((y_hat - Y) ** 2) * TRAIN_ROWS
+                        + beta * trainer.total_kl(s, priors))
+                return torch.autograd.grad(loss, leaves)
 
-            def capture_codec(f):
-                def wrapped(art_, *a, **kw):
-                    got["art"] = art_
-                    return f(art_, *a, **kw)
-                return wrapped
+        ga, gb = weight_grads(), weight_grads()
+        equal_grads = all(torch.equal(a, b) for a, b in zip(ga, gb))
+        n_post = 2 * len(state.posteriors())
+        del ga, gb
+        st1, pr1, beta1, _ = runs[0]
+        path = os.path.join(tmp_root, "ts.npz")
+        train_state.save_train_state(path, st1, pr1, float(beta1), 2)
+        st_l, pr_l, beta_l, done_l, _ = train_state.load_train_state(path, cfg, "cuda")
+        gen.set_state(g_state)
+        cont_mem = em(st1, pr1, beta1, gen, 1)
+        gen.set_state(g_state)
+        cont_disk = em(st_l, pr_l, beta_l, gen, 1)
+        equal_resume = (same_state(cont_mem[0], cont_disk[0]) and cont_mem[2] == cont_disk[2]
+                        and done_l == 2)
+        print(f"two 2-iteration em_iters runs (3 epochs each) from one state and generator "
+              f"state, R={TRAIN_ROWS}: bitwise equal {equal_runs}; the loss's gradients "
+              f"twice, the {len(state.leaves()) - n_post} A and conv weight and bias leaves "
+              f"included: bitwise equal {equal_grads}; a train state saved, loaded and "
+              f"continued vs continued in memory: bitwise equal {equal_resume} [{card}]")
+        if not (equal_runs and equal_grads and equal_resume):
+            raise AssertionError("training on the card does not repeat bit for bit")
+        del runs, cont_mem, cont_disk, st_l, pr_l
+        # one epoch at R = 64 from one state and one noise draw, card vs CPU,
+        # under --precision highest (exact f32 on the card, as the CPU computes)
+        rows = slice(0, 64)
+        small = trainer.PriorState(
+            w=trainer.Gaussian(state.w.loc[rows], state.w.log_scale[rows]),
+            lpe=trainer.Gaussian(state.lpe.loc[rows], state.lpe.log_scale[rows]),
+            h=None, hh=None, A=state.A, up=state.up)
+        noise = trainer.draw_noise(small, cfg, 1, torch.Generator(device="cuda")
+                                   .manual_seed(seed))
+        small_cpu, pr_cpu = small.to("cpu"), priors.to("cpu")
+        with platform.ambient("highest"):
+            card_out = trainer.sgd_epochs(small, X[rows], Y[rows], priors, beta,
+                                          lambda: noise, cfg=cfg, n_epochs=1, lr=TRAIN_LR)
+        cpu_out = trainer.sgd_epochs(small_cpu, torch.from_numpy(X_np[rows]),
+                                     torch.from_numpy(Y_np[rows]), pr_cpu, beta,
+                                     lambda: [n.cpu() for n in noise], cfg=cfg,
+                                     n_epochs=1, lr=TRAIN_LR)
+        worst = states_close(card_out[0], cpu_out[0], small_cpu, 1)
+        m_err = abs(card_out[1].mse.item() / cpu_out[1].mse.item() - 1)
+        k_err = abs(card_out[1].kl.item() / cpu_out[1].kl.item() - 1)
+        print(f"one epoch at R=64 from one state and one noise draw, card (--precision "
+              f"highest) vs CPU: mse "
+              f"relative diff {m_err:.3e}, KL {k_err:.3e} (rtol 1e-4); every leaf within "
+              f"{worst:.3f} of its bound (1e-6 of its norm + 1e-2 of the change's, every "
+              f"element within 2 lr) [{card}]")
+        if m_err > 1e-4 or k_err > 1e-4:
+            raise AssertionError("one epoch on the card differs from the CPU's")
+        out["determinism"] = {"runs": equal_runs, "grads": equal_grads,
+                              "resume": equal_resume, "card_vs_cpu_of_bound": worst,
+                              "mse_rel": m_err, "kl_rel": k_err}
 
-            def capture_compress(f):
-                def wrapped(codec_, state_, Xte, Yte, cfg_, *a, **kw):
-                    got.update(codec=codec_, X=Xte, res=f(codec_, state_, Xte, Yte, cfg_, *a, **kw))
-                    return got["res"]
-                return wrapped
+    with phase("rd_sweep"):
+        got = {}
 
-            sweep = ["--dataset", "cifar", "--synthetic", str(TRAIN_ROWS), "--n_test",
-                     str(N_ROWS), "--bitrates", str(TRAIN_BITRATE), *TRAIN_EM,
-                     "--n_encode_epochs", "10", "--finetune_epochs", "1", "--seed", str(seed),
-                     "--out", os.path.join(tmp_root, "rd.json")]
-            zero_launches()
-            t0 = time.perf_counter()
-            quiet = ProgressFiltered(sys.stdout)
-            with replaced(rd_sweep, "init_codec", capture_codec), \
-                    replaced(rd_sweep, "compress", capture_compress), \
-                    contextlib.redirect_stdout(quiet):
-                (point,) = rd_sweep.main(sweep + [
-                    "--train_state_dir", os.path.join(tmp_root, "ts_sweep"),
-                    "--state_dir", os.path.join(tmp_root, "enc")])
-            torch.cuda.synchronize()
-            sweep_s = time.perf_counter() - t0
-            res_e = got["res"]
-            launched_sweep = dict(fused_inr.launches)
-            t = res_e.timings
-            n_ep = epochs + t["phase1_epochs"] + t["finetune_epochs"]
-            print(f"({quiet.dropped} per-group progress lines of the encode left out)")
-            print(f"kernel launches in rd_sweep: {launched_sweep}; epochs {n_ep} (training "
-                  f"{epochs}, encode {t['phase1_epochs']} + {t['finetune_epochs']})")
-            if launched_sweep["siren_bwd"] != n_ep:
-                raise AssertionError("rd_sweep did not launch siren_bwd once per epoch")
-            if not res_e.state.w.compressed.all():
-                raise AssertionError("rd_sweep's encode left groups uncoded")
-            print(f"rd_sweep CIFAR: trained on {TRAIN_ROWS}, encoded {point['n_rows']} rows, "
-                  f"{point['n_groups']['w']} groups, all coded; wall {sweep_s:.3f} s (encode "
-                  f"optimize {t['optimize_s']:.3f} s, code {t['code_s']:.3f} s); PSNR "
-                  f"{point['distortion_mean']:.4f} dB @ {point['actual_bitrate']:.4f} bpp "
-                  f"[{card}]")
-            check_bitstream(got["codec"], res_e, torch.as_tensor(got["X"]).cuda(), cfg,
-                            got["art"], "rd_sweep encode")
-            # a crash after the first train-state snapshot, relaunched twice
-            crash = sweep + ["--skip_encode", "--train_state_dir",
-                             os.path.join(tmp_root, "ts_crash")]
-            saved = {}
+        def capture_codec(f):
+            def wrapped(art_, *a, **kw):
+                got["art"] = art_
+                return f(art_, *a, **kw)
+            return wrapped
 
-            def crashing(f):
-                def wrapped(path_, *a, **kw):
-                    f(path_, *a, **kw)
-                    saved["controller"] = dict(kw["controller"])
-                    raise Crash("train state")
-                return wrapped
+        def capture_compress(f):
+            def wrapped(codec_, state_, Xte, Yte, cfg_, *a, **kw):
+                got.update(codec=codec_, X=Xte, res=f(codec_, state_, Xte, Yte, cfg_, *a, **kw))
+                return got["res"]
+            return wrapped
 
-            with replaced(train_state, "save_train_state", crashing):
-                try:
-                    rd_sweep.main(crash)
-                    raise AssertionError("rd_sweep took no train-state snapshot")
-                except Crash:
-                    pass
-            snap = os.path.join(tmp_root, "ts_crash", f"train_state_cifar_{TRAIN_BITRATE:g}.npz")
-            passed, finals = [], []
+        sweep = ["--dataset", "cifar", "--synthetic", str(TRAIN_ROWS), "--n_test",
+                 str(N_ROWS), "--bitrates", str(TRAIN_BITRATE), *TRAIN_EM,
+                 "--n_encode_epochs", "10", "--finetune_epochs", "1", "--seed", str(seed),
+                 "--out", os.path.join(tmp_root, "rd.json")]
+        zero_launches()
+        t0 = time.perf_counter()
+        quiet = ProgressFiltered(sys.stdout)
+        with replaced(rd_sweep, "init_codec", capture_codec), \
+                replaced(rd_sweep, "compress", capture_compress), \
+                contextlib.redirect_stdout(quiet):
+            (point,) = rd_sweep.main(sweep + [
+                "--train_state_dir", os.path.join(tmp_root, "ts_sweep"),
+                "--state_dir", os.path.join(tmp_root, "enc")])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        res_e = got["res"]
+        launched_sweep = dict(fused_inr.launches)
+        t = res_e.timings
+        n_ep = TRAIN_EPOCHS + t["phase1_epochs"] + t["finetune_epochs"]
+        print(f"({quiet.dropped} per-group progress lines of the encode left out)")
+        print(f"kernel launches in rd_sweep: {launched_sweep}; epochs {n_ep} (training "
+              f"{TRAIN_EPOCHS}, encode {t['phase1_epochs']} + {t['finetune_epochs']})")
+        if launched_sweep["siren_bwd"] != n_ep:
+            raise AssertionError("rd_sweep did not launch siren_bwd once per epoch")
+        if not res_e.state.w.compressed.all():
+            raise AssertionError("rd_sweep's encode left groups uncoded")
+        print(f"rd_sweep CIFAR: trained on {TRAIN_ROWS}, encoded {point['n_rows']} rows, "
+              f"{point['n_groups']['w']} groups, all coded; wall {sweep_s:.3f} s (encode "
+              f"optimize {t['optimize_s']:.3f} s, code {t['code_s']:.3f} s); PSNR "
+              f"{point['distortion_mean']:.4f} dB @ {point['actual_bitrate']:.4f} bpp "
+              f"[{card}]")
+        check_bitstream(got["codec"], res_e, torch.as_tensor(got["X"]).cuda(), cfg,
+                        got["art"], "rd_sweep encode")
+        # a crash after the first train-state snapshot, relaunched twice
+        crash = sweep + ["--skip_encode", "--train_state_dir",
+                         os.path.join(tmp_root, "ts_crash")]
+        saved = {}
 
-            def watching(f):
-                def wrapped(*a, **kw):
-                    passed.append((kw["controller"], kw["em_iter_offset"]))
-                    return f(*a, **kw)
-                return wrapped
+        def crashing(f):
+            def wrapped(path_, *a, **kw):
+                f(path_, *a, **kw)
+                saved["controller"] = dict(kw["controller"])
+                raise Crash("train state")
+            return wrapped
 
-            with replaced(trainer, "em_train", watching):
-                for k in (1, 2):
-                    ts = os.path.join(tmp_root, f"ts_re{k}")
-                    os.makedirs(ts)
-                    shutil.copy(snap, ts)
-                    rd_sweep.main(sweep + ["--skip_encode", "--train_state_dir", ts,
-                                           "--save_prior_dir", os.path.join(tmp_root, f"p{k}")])
-                    finals.append(train_state.load_train_state(
-                        os.path.join(ts, os.path.basename(snap)), cfg, "cuda"))
-            prior_name = f"PRIOR_rd_cifar_bitrate={TRAIN_BITRATE:g}.npz"
-            arts = [np.load(os.path.join(tmp_root, f"p{k}", prior_name)) for k in (1, 2)]
-            equal_art = all(np.array_equal(arts[0][f], arts[1][f]) for f in arts[0].files)
-            equal_state = (same_state(finals[0][0], finals[1][0])
-                           and finals[0][2:] == finals[1][2:])
-            restored = passed == [(saved["controller"], 1)] * 2
-            print(f"rd_sweep crashed after its first train-state snapshot (controller "
-                  f"{saved['controller']}), relaunched twice from it: controller restored "
-                  f"{restored}; final train states (EM {finals[0][3]}) bitwise equal "
-                  f"{equal_state}; saved priors bitwise equal {equal_art} [{card}]")
-            if not (restored and equal_state and equal_art):
-                raise AssertionError("the relaunched rd_sweeps differ, or the controller was not "
-                                     "restored")
-            out["rd_sweep"] = {"wall_s": sweep_s, "point": point, "launches": launched_sweep}
-            del got, finals, arts
+        with replaced(train_state, "save_train_state", crashing):
+            try:
+                rd_sweep.main(crash)
+                raise AssertionError("rd_sweep took no train-state snapshot")
+            except Crash:
+                pass
+        snap = os.path.join(tmp_root, "ts_crash", f"train_state_cifar_{TRAIN_BITRATE:g}.npz")
+        passed, finals = [], []
 
-        with phase("Kodak train"):
-            kcfg = KODAK_TRAIN
-            hw = tuple(n * p for n, p in zip(kcfg.patch_nums, kcfg.pixel_sizes))
-            Xk, Yk = points_from_data(list(smooth_images(KODAK_TRAIN_IMAGES, seed + 9, hw)),
-                                      kcfg)
-            Xk, Yk = torch.from_numpy(Xk).cuda(), torch.from_numpy(Yk).cuda()
-            per_image = kcfg.patches_per_datapoint
-            zero_launches()
-            t0 = time.perf_counter()
-            res_k = trainer.em_train(torch.Generator(device="cuda").manual_seed(seed), kcfg, Xk,
-                                     Yk, 0.5, n_em_iters=2, first_epochs=3, later_epochs=3)
-            torch.cuda.synchronize()
-            kodak_s = time.perf_counter() - t0
-            launched_k = dict(fused_inr.launches)
-            rows = {n: getattr(res_k.state, n).loc.shape[0] for n in ("w", "h", "hh")}
-            R = KODAK_TRAIN_IMAGES * per_image
-            if launched_k["siren_bwd"] != 6 or rows != {"w": R, "h": kcfg.rows_level2(R),
-                                                        "hh": kcfg.rows_level3(R)}:
-                raise AssertionError(f"Kodak training: rows {rows}, launches {launched_k}")
-            art_k = build_prior_artifact(res_k.state, res_k.priors, res_k.kl_beta, kcfg,
-                                         codebook_seed=seed)
-            codec_k, state_k = init_codec(art_k, per_image)
-            groups = {n: codec_k.meta(n).n_groups for n in codec_k.level_names}
-            idx = {n: np.random.default_rng(seed).integers(
-                0, 2**kcfg.bits_per_group, (state_k.level(n).q.loc.shape[0], groups[n]))
-                for n in codec_k.level_names}
-            y_k = decode(codec_k, idx, Xk[:per_image], kcfg)
-            if not torch.isfinite(y_k).all() or any(p is None for p in res_k.priors.leaves()):
-                raise AssertionError("the Kodak prior does not decode")
-            print(f"Kodak em_train: {KODAK_TRAIN_IMAGES} images, rows {rows}, 2 EM iterations x 3 "
-                  f"epochs in {kodak_s:.3f} s (launches {launched_k}); three-level M-step and "
-                  f"artifact, groups {groups}; init_codec and a decode of one image on the card "
-                  f"[{card}]")
-            with exact_f32():
-                fwd_k, bwd_k = kernel_checks(art_k, R, 1, gen, card, errs, bwd_errs,
-                                             "Kodak train")
-            out["kodak_train"] = {"wall_s": kodak_s, "groups": groups, "launches": launched_k,
-                                  "siren_fwd": fwd_k, "siren_bwd": bwd_k}
-    finally:
-        shutil.rmtree(tmp_root, ignore_errors=True)
+        def watching(f):
+            def wrapped(*a, **kw):
+                passed.append((kw["controller"], kw["em_iter_offset"]))
+                return f(*a, **kw)
+            return wrapped
+
+        with replaced(trainer, "em_train", watching):
+            for k in (1, 2):
+                ts = os.path.join(tmp_root, f"ts_re{k}")
+                os.makedirs(ts)
+                shutil.copy(snap, ts)
+                rd_sweep.main(sweep + ["--skip_encode", "--train_state_dir", ts,
+                                       "--save_prior_dir", os.path.join(tmp_root, f"p{k}")])
+                finals.append(train_state.load_train_state(
+                    os.path.join(ts, os.path.basename(snap)), cfg, "cuda"))
+        prior_name = f"PRIOR_rd_cifar_bitrate={TRAIN_BITRATE:g}.npz"
+        arts = [np.load(os.path.join(tmp_root, f"p{k}", prior_name)) for k in (1, 2)]
+        equal_art = all(np.array_equal(arts[0][f], arts[1][f]) for f in arts[0].files)
+        equal_state = (same_state(finals[0][0], finals[1][0])
+                       and finals[0][2:] == finals[1][2:])
+        restored = passed == [(saved["controller"], 1)] * 2
+        print(f"rd_sweep crashed after its first train-state snapshot (controller "
+              f"{saved['controller']}), relaunched twice from it: controller restored "
+              f"{restored}; final train states (EM {finals[0][3]}) bitwise equal "
+              f"{equal_state}; saved priors bitwise equal {equal_art} [{card}]")
+        if not (restored and equal_state and equal_art):
+            raise AssertionError("the relaunched rd_sweeps differ, or the controller was not "
+                                 "restored")
+        out["rd_sweep"] = {"wall_s": sweep_s, "point": point, "launches": launched_sweep}
+        del got, finals, arts
+
+    with phase("Kodak train"):
+        kcfg = KODAK_TRAIN
+        hw = tuple(n * p for n, p in zip(kcfg.patch_nums, kcfg.pixel_sizes))
+        Xk, Yk = points_from_data(list(smooth_images(KODAK_TRAIN_IMAGES, seed + 9, hw)),
+                                  kcfg)
+        Xk, Yk = torch.from_numpy(Xk).cuda(), torch.from_numpy(Yk).cuda()
+        per_image = kcfg.patches_per_datapoint
+        zero_launches()
+        t0 = time.perf_counter()
+        res_k = trainer.em_train(torch.Generator(device="cuda").manual_seed(seed), kcfg, Xk,
+                                 Yk, 0.5, n_em_iters=2, first_epochs=3, later_epochs=3)
+        torch.cuda.synchronize()
+        kodak_s = time.perf_counter() - t0
+        launched_k = dict(fused_inr.launches)
+        rows = {n: getattr(res_k.state, n).loc.shape[0] for n in ("w", "h", "hh")}
+        R = KODAK_TRAIN_IMAGES * per_image
+        if launched_k["siren_bwd"] != 6 or rows != {"w": R, "h": kcfg.rows_level2(R),
+                                                    "hh": kcfg.rows_level3(R)}:
+            raise AssertionError(f"Kodak training: rows {rows}, launches {launched_k}")
+        art_k = build_prior_artifact(res_k.state, res_k.priors, res_k.kl_beta, kcfg,
+                                     codebook_seed=seed)
+        codec_k, state_k = init_codec(art_k, per_image)
+        groups = {n: codec_k.meta(n).n_groups for n in codec_k.level_names}
+        idx = {n: np.random.default_rng(seed).integers(
+            0, 2**kcfg.bits_per_group, (state_k.level(n).q.loc.shape[0], groups[n]))
+            for n in codec_k.level_names}
+        y_k = decode(codec_k, idx, Xk[:per_image], kcfg)
+        if not torch.isfinite(y_k).all() or any(p is None for p in res_k.priors.leaves()):
+            raise AssertionError("the Kodak prior does not decode")
+        print(f"Kodak em_train: {KODAK_TRAIN_IMAGES} images, rows {rows}, 2 EM iterations x 3 "
+              f"epochs in {kodak_s:.3f} s (launches {launched_k}); three-level M-step and "
+              f"artifact, groups {groups}; init_codec and a decode of one image on the card "
+              f"[{card}]")
+        with exact_f32():
+            fwd_k, bwd_k = kernel_checks(art_k, R, 1, gen, card, errs, bwd_errs,
+                                         "Kodak train")
+        out["kodak_train"] = {"wall_s": kodak_s, "groups": groups, "launches": launched_k,
+                              "siren_fwd": fwd_k, "siren_bwd": bwd_k}
     return out
+
+
+# ----------------------------------------------------------------- scale-out
+
+# the world-2 training cut: 2 EM iterations of 3 epochs at R = 2,000 (1,000
+# rows a rank)
+SCALE_EM = dict(n_em_iters=2, first_epochs=3, later_epochs=3)
+SCALE_EPOCHS = 6
+SCALE_RANKS = 2
+SCALE_TIMEOUT_S = 600
+SCALE_TIMED = 10  # warm epochs timed for a rank's train_epoch_s and epoch_s
+# the precision modes of a data-parallel rank: the ambient (TF32, what
+# --n_devices gives a user) and --precision highest (exact)
+SCALE_MODES = {"highest": "highest", "ambient": None}
+# a world-1 run under the launcher: starts the group (NCCL), checks it with
+# one all_reduce, times both, then runs the CLI module given with its argv
+# with the launch counts zeroed just before, and prints them (and the
+# encode's epochs) as a JSON line after
+LAUNCHED = (
+    "import importlib, json, sys, time, torch, torch.distributed as dist\n"
+    "t0 = time.perf_counter()\n"
+    "from recombiner_tpu_torch.ops import fused_inr\n"
+    "from recombiner_tpu_torch.parallel import launch\n"
+    "assert launch.maybe_initialize_distributed('cuda')\n"
+    "t1 = time.perf_counter()\n"
+    "x = torch.ones(1, device='cuda')\n"
+    "dist.all_reduce(x)\n"
+    "torch.cuda.synchronize()\n"
+    "print(f'process group: backend {dist.get_backend()}, world {dist.get_world_size()}, '\n"
+    "      f'init_process_group {t1 - t0:.3f} s, first collective {time.perf_counter() - t1:.3f} "
+    "s', flush=True)\n"
+    "assert dist.get_backend() == 'nccl' and dist.get_world_size() == 1 and x.item() == 1\n"
+    "fused_inr.launches.update(dict.fromkeys(fused_inr.launches, 0))\n"
+    "res = importlib.import_module(sys.argv[1]).main(sys.argv[2:])\n"
+    "torch.cuda.synchronize()\n"
+    "t = getattr(res, 'timings', None)\n"
+    "print(json.dumps({'launches': dict(fused_inr.launches), 'epochs': None if t is None else "
+    "t['phase1_epochs'] + t['finetune_epochs']}), flush=True)\n")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_launched(module: str, argv: list, what: str) -> dict:
+    """``module``'s main(argv) in a subprocess under torchrun's environment at
+    world size 1 (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT);
+    returns that process's launch counts of the run (``launches``) and, for
+    an encode, its epochs (``epochs``)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()),
+               PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", LAUNCHED, module, *argv], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=SCALE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-3000:], res.stderr[-3000:])
+        raise AssertionError(f"{what} under the launcher exited with {res.returncode}")
+    lines = res.stdout.splitlines()
+    group = next(line for line in lines if line.startswith("process group"))
+    counts = json.loads(next(line for line in reversed(lines) if line.startswith('{"launches"')))
+    print(f"{what} under the launcher (subprocess, {wall:.3f} s): {group}; kernel launches in "
+          f"its run {counts['launches']}")
+    return counts
+
+
+def check_train_launches(launched: dict, what: str) -> None:
+    """cli.train at TRAIN_EM: siren_bwd once per epoch, siren_fwd once per
+    epoch and once per log forward."""
+    print(f"kernel launches in {what}: {launched}; epochs run {TRAIN_EPOCHS}, log forwards "
+          f"{len(TRAIN_CHUNKS)} (chunks {TRAIN_CHUNKS})")
+    if (launched["siren_bwd"] != TRAIN_EPOCHS
+            or launched["siren_fwd"] != TRAIN_EPOCHS + len(TRAIN_CHUNKS)):
+        raise AssertionError(f"{what} did not launch siren_bwd once per epoch and siren_fwd "
+                             "once per epoch and once per log forward")
+
+
+def npz_equal(a: str, b: str) -> bool:
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            np.array_equal(x[f], y[f]) for f in x.files)
+
+
+def scaleout_world1(seed: int, card: str, tmp_root: str, train_argv: list,
+                    train_prior: str) -> dict:
+    """cli.train and cli.compress at world size 1 on NCCL under the
+    launcher's environment, each bitwise against the same CLI run with no
+    process group; each launched run's own launch counts."""
+    cfg = CIFAR
+    out = {}
+    saving = os.path.join(tmp_root, "prior_launched")
+    argv = [saving if a == os.path.dirname(train_prior) else a for a in train_argv]
+    got = run_launched("recombiner_tpu_torch.cli.train", argv + ["--n_devices", "1"], "cli.train")
+    check_train_launches(got["launches"], "cli.train at world size 1 on NCCL")
+    out["train_launches"] = got["launches"]
+    launched_prior = os.path.join(saving, os.path.basename(train_prior))
+    out["train_equal"] = npz_equal(launched_prior, train_prior)
+    print(f"cli.train CIFAR R={TRAIN_ROWS} at world size 1 on NCCL vs no group: artifact "
+          f"bitwise equal {out['train_equal']} [{card}]")
+
+    test_dir = os.path.join(tmp_root, "test")
+    os.makedirs(test_dir)
+    for i, img in enumerate(smooth_images(N_ROWS, seed + 11)):
+        export.write_png(os.path.join(test_dir, f"{i:04d}.png"), img)
+    art = make_cifar_artifact(seed)
+    prior = os.path.join(tmp_root, "cifar_prior.npz")
+    save_prior_artifact(prior, art)
+
+    def argv_c(save_dir):
+        return ["--test_dir", test_dir, "--test_idx", "0", "--prior_path", prior, "--save_dir",
+                save_dir, "--n_epochs", str(ENCODE_PHASE1_EPOCHS), "--finetune_epochs",
+                str(ENCODE_FINETUNE_EPOCHS), "--sample_size", str(SAMPLE_SIZE), "--seed",
+                str(seed)]
+
+    plain_dir, launched_dir = (os.path.join(tmp_root, d) for d in ("enc_plain", "enc_nccl"))
+    zero_launches()
+    with contextlib.redirect_stdout(ProgressFiltered(sys.stdout)):
+        res = compress_cli.main(argv_c(plain_dir))
+    out["no_group_launches"] = read_launches(
+        res.timings["phase1_epochs"] + res.timings["finetune_epochs"],
+        "cli.compress with no process group")
+    got = run_launched("recombiner_tpu_torch.cli.compress",
+                       argv_c(launched_dir) + ["--n_devices", "1"], "cli.compress")
+    out["compress_launches"] = got["launches"]
+    if (got["launches"]["siren_bwd"] != got["epochs"]
+            or got["launches"]["siren_fwd"] < got["epochs"] + 1):
+        raise AssertionError("cli.compress at world size 1 on NCCL did not launch siren_bwd "
+                             "once per epoch and siren_fwd once per epoch plus the decode")
+    files = sorted(os.listdir(plain_dir))
+    same_files = files == sorted(os.listdir(launched_dir)) and all(
+        open(os.path.join(plain_dir, f), "rb").read()
+        == open(os.path.join(launched_dir, f), "rb").read() for f in files)
+    _, idx = read_bitstream(os.path.join(launched_dir, "bitstream_test_id_0.rctb"))
+    feats = grid_fourier_features(cfg.pixel_sizes, cfg.fourier_dim)
+    X = np.ascontiguousarray(np.broadcast_to(feats, (N_ROWS, *feats.shape)))
+    y = decode(init_codec(art, N_ROWS)[0], idx, X, cfg).cpu().numpy()
+    out["compress_equal"] = (same_files and np.array_equal(y, res.reconstruction)
+                             and got["launches"] == out["no_group_launches"])
+    print(f"cli.compress CIFAR R={N_ROWS} S={SAMPLE_SIZE} at world size 1 on NCCL vs no group: "
+          f"{files} bytewise equal {same_files}; the launched bitstream decoded equal to the "
+          f"reconstruction {np.array_equal(y, res.reconstruction)}; launches {got['launches']} "
+          f"against {out['no_group_launches']} with no group, {got['epochs']} epochs [{card}]")
+    if not (out["train_equal"] and out["compress_equal"]):
+        raise AssertionError("the CLIs at world size 1 on NCCL differ from the runs with no "
+                             "process group")
+    return out
+
+
+def scaleout_rank(rank: int, inp: str, out_dir: str, modes: dict, repeats: int) -> None:
+    """One rank of a data-parallel run (``launch.spawn``), on its own card or
+    a share of one. For each precision mode of ``modes`` (name: the
+    ``platform.ambient`` argument), em_train at CIFAR R = 2,000 (SCALE_EM)
+    and progressive.compress at R = 500, S = 5 (the encode slice's cut),
+    each ``repeats`` times from one seed, with the launches and the time in
+    collectives of every run (timed between synchronisations around each
+    ``mesh.all_gather``); then SCALE_TIMED warm epochs of each
+    (``train_epoch_s``, ``epoch_s``) and an epoch's noise drawn for every
+    rank's rows against this rank's alone. Keeps the first run's gathered
+    state, shared leaves, indices, reconstruction and PSNR, and whether
+    every repeat was bitwise equal to it; rank 0 writes each mode's
+    bitstream. The inputs come from ``inp`` (seed, Y_train, Y_encode); the
+    results go to ``out_dir/rank_{rank}.pt``."""
+    from recombiner_tpu_torch.parallel import mesh as mesh_mod
+
+    c = torch.load(inp, weights_only=False)
+    seed, cfg = c["seed"], CIFAR
+    mesh = mesh_mod.make_mesh()
+    coll = {"s": 0.0, "n": 0}
+    real = mesh_mod.all_gather
+
+    def timed(t, m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = real(t, m)
+        torch.cuda.synchronize()
+        coll["s"] += time.perf_counter() - t0
+        coll["n"] += 1
+        return got
+
+    def run(fn):
+        zero_launches()
+        coll.update(s=0.0, n=0)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {"wall_s": time.perf_counter() - t0, "launches": dict(fused_inr.launches),
+                     "collective_s": coll["s"], "collectives": coll["n"]}
+
+    def timed_epochs(fn):
+        fn(2)
+        torch.cuda.synchronize()
+        coll.update(s=0.0, n=0)
+        t0 = time.perf_counter()
+        fn(SCALE_TIMED)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / SCALE_TIMED, coll["s"] / SCALE_TIMED
+
+    mesh_mod.all_gather = timed
+    feats = torch.from_numpy(grid_fourier_features(cfg.pixel_sizes, cfg.fourier_dim)).cuda()
+    art = make_cifar_artifact(seed)
+    out = {"rank": rank, "device": torch.cuda.current_device(), "card": card_line()}
+    torch.cuda.reset_peak_memory_stats()
+    for mode, prec in modes.items():
+        m = out[mode] = {"train": [], "encode": []}
+        with platform.ambient(prec):
+            part = mesh_mod.partition(mesh, TRAIN_ROWS)
+            X = mesh_mod.shard_rows(feats.expand(TRAIN_ROWS, *feats.shape), part)
+            Y = mesh_mod.shard_rows(torch.from_numpy(c["Y_train"]), part).cuda()
+            for k in range(repeats):
+                res, stats = run(lambda: trainer.em_train(
+                    torch.Generator(device="cuda").manual_seed(seed), cfg, X, Y, TRAIN_BITRATE,
+                    lr=TRAIN_LR, part=part, **SCALE_EM))
+                state = [t.cpu() for t in res.state.gathered().leaves()]
+                if k == 0:
+                    first = state
+                    m["state"] = state
+                    m["shared"] = [t.cpu() for t in
+                                   res.state.leaves()[2 * len(res.state.posteriors()):]]
+                stats["equal_to_first"] = all(torch.equal(a, b) for a, b in zip(state, first))
+                m["train"].append(stats)
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            m["train_epoch_s"], m["train_collective_s"] = timed_epochs(
+                lambda n: trainer.sgd_epochs(res.state, X, Y, res.priors, res.kl_beta, gen,
+                                             cfg=cfg, n_epochs=n, lr=TRAIN_LR))
+            # an epoch's noise: every rank's rows drawn and this rank's kept, against
+            # drawing this rank's rows alone (what the global draw costs)
+            local = [t.shape for t in trainer.draw_noise(res.state, cfg, 1)]
+            m["noise_ms"] = cuda_ms(lambda: trainer.draw_noise(res.state, cfg, 1, gen), 20)
+            m["noise_local_ms"] = cuda_ms(
+                lambda: [torch.randn(s, generator=gen, device="cuda") for s in local], 20)
+            del X, Y, res, state, first
+
+            codec, state0 = init_codec(art, N_ROWS)
+            part = mesh_mod.partition(mesh, N_ROWS)
+            Xe = mesh_mod.shard_rows(feats.expand(N_ROWS, *feats.shape), part)
+            Ye = mesh_mod.shard_rows(torch.from_numpy(c["Y_encode"]), part).cuda()
+            st = mesh_mod.shard_rows(state0, part)
+            for k in range(repeats):
+                r, stats = run(lambda: progressive.compress(
+                    codec, st, Xe, Ye, cfg, torch.Generator(device="cuda").manual_seed(seed),
+                    n_optimize_epochs=ENCODE_PHASE1_EPOCHS, sample_size=SAMPLE_SIZE,
+                    finetune_overrides={"w": ENCODE_FINETUNE_EPOCHS}))
+                stats["epochs"] = r.timings["phase1_epochs"] + r.timings["finetune_epochs"]
+                if k == 0:
+                    m.update(indices=r.indices["w"], reconstruction=r.reconstruction,
+                             psnr=float(np.mean(r.distortion)))
+                stats["equal_to_first"] = bool(
+                    np.array_equal(r.indices["w"], m["indices"])
+                    and np.array_equal(r.reconstruction, m["reconstruction"]))
+                m["encode"].append(stats)
+            if rank == 0:
+                write_bitstream(os.path.join(out_dir, f"bitstream_{mode}.rctb"), r.indices,
+                                config_name=cfg.name, codebook_seed=art.codebook_seed,
+                                codebook_kind=art.codebook_kind,
+                                bits_per_group=cfg.bits_per_group)
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            m["epoch_s"], _ = timed_epochs(
+                lambda n: encoder.optimize(codec, st, Xe, Ye, cfg, gen, n_epochs=n,
+                                           sample_size=SAMPLE_SIZE))
+            del codec, state0, st, Xe, Ye, r
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    torch.save(out, os.path.join(out_dir, f"rank_{rank}.pt"))
+
+
+def row_count_invariance(codec, cfg, seed: int) -> dict:
+    """Whether the first 1/k of B = R * S rows of each per-row product come
+    out bitwise as they do alone (k = 2, 4, 8), exact and at TF32: the
+    A-transforms (``ATransform``: forward and the row-major latent gradient)
+    and the conv stack (forward and data gradient). A data-parallel rank
+    holding 1/k of the rows repeats world size 1 bit for bit only where
+    every product does."""
+    B = N_ROWS * SAMPLE_SIZE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    args = (cfg.data_dim, cfg.layerwise_scale_factors, cfg.paddings)
+    out = {}
+    for mode in MODES:
+        with platform.ambient(None if mode == "ambient" else mode), precision(), \
+                deterministic_convs():
+            res = {}
+            for i, A in enumerate(codec.A):
+                At = A.t().contiguous()
+                h = torch.randn(B, A.shape[0], generator=g, device="cuda")
+                up = torch.randn(B, A.shape[0], generator=g, device="cuda")
+                res[f"A{i} forward"] = [torch.equal((h @ A)[:B // k], h[:B // k] @ A)
+                                        for k in (2, 4, 8)]
+                res[f"A{i} latent gradient"] = [torch.equal((up @ At)[:B // k], up[:B // k] @ At)
+                                                for k in (2, 4, 8)]
+                if i == 0:  # what ATransform avoids: cuBLAS's transposed operand
+                    res["A0 latent gradient as grad @ A.t()"] = [
+                        torch.equal((up @ A.t())[:B // k], up[:B // k] @ A.t()) for k in (2, 4, 8)]
+            lpe = torch.randn(B, *cfg.lpe_spatial, cfg.latent_dim, generator=g, device="cuda",
+                              requires_grad=True)
+            pe = apply_upsample_phased(codec.up, lpe, *args)
+            up = torch.randn(pe.shape, generator=g, device="cuda")
+            (grad,) = torch.autograd.grad((pe * up).sum(), lpe)
+            fwd, dgrad = [], []
+            for k in (2, 4, 8):
+                part = lpe[:B // k].detach().clone().requires_grad_(True)
+                pe_k = apply_upsample_phased(codec.up, part, *args)
+                (grad_k,) = torch.autograd.grad((pe_k * up[:B // k]).sum(), part)
+                fwd.append(torch.equal(pe[:B // k], pe_k))
+                dgrad.append(torch.equal(grad[:B // k], grad_k))
+            res["conv stack forward"], res["conv stack data gradient"] = fwd, dgrad
+        out[mode] = res
+        print(f"row-count invariance, {mode} ({B} rows against their first 1/2, 1/4, 1/8 "
+              "alone, bitwise):")
+        for what, eq in res.items():
+            print(f"  {what}: {eq}")
+    return out
+
+
+def scaleout_world2(seed: int, card: str, tmp_root: str, train_dir: str) -> dict:
+    """SCALE_RANKS ranks on the one card over gloo (NCCL refuses two ranks
+    on one device), under --precision highest and at the ambient (TF32),
+    against the same runs at world size 1 in this process."""
+    cfg = CIFAR
+    out_dir = os.path.join(tmp_root, "world2")
+    os.makedirs(out_dir)
+    _, Y_train = load_training_set(train_dir, cfg, seed, TRAIN_ROWS)
+    Y_encode = smooth_images(N_ROWS, seed).reshape(N_ROWS, cfg.n_pixels, cfg.output_dim)
+    inp = os.path.join(out_dir, "in.pt")
+    torch.save({"seed": seed, "Y_train": Y_train, "Y_encode": Y_encode}, inp)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(ProgressFiltered(sys.stdout)):
+        launch.spawn(scaleout_rank, SCALE_RANKS, (inp, out_dir, SCALE_MODES, 2),
+                     backend="gloo", cuda="shared", timeout_s=SCALE_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank_{r}.pt"), weights_only=False)
+             for r in range(SCALE_RANKS)]
+
+    # world size 1 in this process: the exact training, and in each mode the
+    # encode and, to show how far rounding alone moves it, the encode with its
+    # initial posteriors nudged by 1e-7 relative
+    feats = torch.from_numpy(grid_fourier_features(cfg.pixel_sizes, cfg.fourier_dim)).cuda()
+    X = feats.expand(TRAIN_ROWS, *feats.shape)
+    with platform.ambient("highest"):
+        start = trainer.init_prior_state(cfg, TRAIN_ROWS,
+                                         torch.Generator(device="cuda").manual_seed(seed))
+        one = trainer.em_train(torch.Generator(device="cuda").manual_seed(seed), cfg, X,
+                               torch.from_numpy(Y_train).cuda(), TRAIN_BITRATE, lr=TRAIN_LR,
+                               **SCALE_EM)
+    art = make_cifar_artifact(seed)
+    codec, state0 = init_codec(art, N_ROWS)
+    Xe = feats.expand(N_ROWS, *feats.shape)
+    nudged = dataclasses.replace(state0, w=dataclasses.replace(state0.w, q=Gaussian(
+        state0.w.q.loc * (1 + 1e-7), state0.w.q.log_scale)))
+    one_enc, nudge_frac = {}, {}
+    for mode, prec in SCALE_MODES.items():
+        with platform.ambient(prec), contextlib.redirect_stdout(ProgressFiltered(sys.stdout)):
+            one_enc[mode], nudge_enc = (
+                progressive.compress(codec, s, Xe, torch.from_numpy(Y_encode).cuda(), cfg,
+                                     torch.Generator(device="cuda").manual_seed(seed),
+                                     n_optimize_epochs=ENCODE_PHASE1_EPOCHS,
+                                     sample_size=SAMPLE_SIZE,
+                                     finetune_overrides={"w": ENCODE_FINETUNE_EPOCHS})
+                for s in (state0, nudged))
+        nudge_frac[mode] = float(np.mean(nudge_enc.indices["w"] == one_enc[mode].indices["w"]))
+    invariance = row_count_invariance(codec, cfg, seed)
+    print("world size 1's encode with its initial posteriors nudged by 1e-7 relative: indices "
+          + ", ".join(f"{mode} {f:.5f}" for mode, f in nudge_frac.items()) + f" equal [{card}]")
+    got = one.state.with_leaves([t.cuda() for t in ranks[0]["highest"]["state"]])
+    worst = states_close(got, one.state, start, SCALE_EPOCHS)
+
+    checks, enc = {}, {}
+    for mode in SCALE_MODES:
+        ms_ = [r[mode] for r in ranks]
+        checks[f"{mode}: train launches = epochs on every rank"] = all(
+            t["launches"] == {"siren_fwd": SCALE_EPOCHS, "siren_bwd": SCALE_EPOCHS}
+            for m in ms_ for t in m["train"])
+        checks[f"{mode}: encode launches: siren_bwd = epochs, siren_fwd >= epochs + 1 on every "
+               "rank"] = all(e["launches"]["siren_bwd"] == e["epochs"]
+                             and e["launches"]["siren_fwd"] >= e["epochs"] + 1
+                             for m in ms_ for e in m["encode"])
+        checks[f"{mode}: A and conv weights bitwise equal on both ranks"] = all(
+            torch.equal(a, b) for a, b in zip(ms_[0]["shared"], ms_[1]["shared"]))
+        checks[f"{mode}: two world-2 trainings bitwise equal"] = all(
+            t["equal_to_first"] for m in ms_ for t in m["train"])
+        checks[f"{mode}: two world-2 encodes bitwise equal"] = all(
+            e["equal_to_first"] for m in ms_ for e in m["encode"])
+        checks[f"{mode}: both ranks return the same encode"] = np.array_equal(
+            ms_[0]["indices"], ms_[1]["indices"])
+        ref = one_enc[mode]
+        frac = float(np.mean(ms_[0]["indices"] == ref.indices["w"]))
+        psnr_gap = ms_[0]["psnr"] - float(np.mean(ref.distortion))
+        bitwise = bool(np.array_equal(ms_[0]["indices"], ref.indices["w"])
+                       and np.array_equal(ms_[0]["reconstruction"], ref.reconstruction))
+        if mode == "highest":  # the JAX package's bar (tests/test_parallel.py)
+            floor = 0.98
+        else:  # at most twice the cells that a 1e-7 nudge moves at world size 1
+            floor = 1 - 2 * (1 - nudge_frac[mode])
+        checks[f"{mode}: encode indices >= {floor:.5f} equal to world size 1"] = frac >= floor
+        checks[f"{mode}: encode PSNR within 0.3 dB of world size 1"] = abs(psnr_gap) < 0.3
+        _, idx = read_bitstream(os.path.join(out_dir, f"bitstream_{mode}.rctb"))
+        y = decode(codec, idx, Xe, cfg).cpu()
+        derr = (y - torch.from_numpy(ms_[0]["reconstruction"])).abs().max().item()
+        torch.testing.assert_close(y, torch.from_numpy(ms_[0]["reconstruction"]), **DECODE_TOL)
+        checks[f"{mode}: rank 0's bitstream decodes in one process within DECODE_TOL"] = True
+        enc[mode] = {"index_agreement": frac, "floor": floor, "psnr_gap_db": psnr_gap,
+                     "bitwise_world1": bitwise, "nudge_index_agreement": nudge_frac[mode],
+                     "decode_err": derr}
+        print(f"world size {SCALE_RANKS} on one card (gloo), {mode}: encode R={N_ROWS} "
+              f"({N_ROWS // 2} rows a rank) against world size 1: indices equal {frac:.5f} "
+              f"(floor {floor:.5f}), PSNR {ms_[0]['psnr']:.4f} against "
+              f"{np.mean(ref.distortion):.4f} dB ({psnr_gap:+.5f}), indices and reconstruction "
+              f"bitwise equal {bitwise}; rank 0's bitstream decoded in one process: max abs "
+              f"diff {derr:.3e} [{card}]")
+    print(f"world size {SCALE_RANKS} on one card (gloo; spawn and both ranks {spawn_s:.3f} s): "
+          f"training (2 EM iterations x 3 epochs, R={TRAIN_ROWS}, {TRAIN_ROWS // 2} rows a rank, "
+          f"--precision highest) against world size 1: every leaf within {worst:.3f} of the "
+          f"trained-state bound [{card}]")
+    for what, ok in checks.items():
+        print(f"  {what}: {ok}")
+    print(f"per rank (correctness plumbing on one shared card, not a scale-out speed) [{card}]:")
+    for r in ranks:
+        for mode in SCALE_MODES:
+            m = r[mode]
+            t, e = m["train"][0], m["encode"][0]
+            print(f"  rank {r['rank']} (cuda:{r['device']}), {mode}: train_epoch_s "
+                  f"{m['train_epoch_s']:.6f} (collectives {1e3 * m['train_collective_s']:.3f} ms "
+                  f"an epoch), epoch_s {m['epoch_s']:.6f} (S={SAMPLE_SIZE}, no collective); "
+                  f"em_train {t['wall_s']:.3f} s with {t['collectives']} collectives in "
+                  f"{t['collective_s']:.3f} s, launches {t['launches']}; compress "
+                  f"{e['wall_s']:.3f} s with {e['collectives']} collectives in "
+                  f"{e['collective_s']:.3f} s, launches {e['launches']}; an epoch's noise drawn "
+                  f"for every rank's rows {m['noise_ms']:.4f} ms against this rank's alone "
+                  f"{m['noise_local_ms']:.4f} ms")
+        print(f"  rank {r['rank']}: peak memory {r['peak_mib']:.1f} MiB")
+    if not all(checks.values()):
+        raise AssertionError("world size 2: " + ", ".join(k for k, v in checks.items() if not v))
+    return {"ranks": [{"rank": r["rank"], "peak_mib": r["peak_mib"]}
+                      | {mode: {k: r[mode][k] for k in ("train_epoch_s", "train_collective_s",
+                                                         "epoch_s", "noise_ms",
+                                                         "noise_local_ms")}
+                         | {"train_launches": r[mode]["train"][0]["launches"],
+                            "encode_launches": r[mode]["encode"][0]["launches"],
+                            "em_train_collective_s": r[mode]["train"][0]["collective_s"],
+                            "compress_collective_s": r[mode]["encode"][0]["collective_s"]}
+                         for mode in SCALE_MODES}
+                      for r in ranks],
+            "train_of_bound": worst, "encode": enc, "row_count_invariance": invariance,
+            "spawn_s": spawn_s}
 
 
 # the CIFAR decode check (card rows 0-7 against the CPU's, atol 1e-4 and
@@ -2190,10 +2659,26 @@ def main(argv=None) -> int:
     kodak = kodak_phases(args.seed, card, errs, bwd_errs)
     modalities = modality_phases(args.seed, card, errs, bwd_errs)
     paths = {"kodak": kodak, **modalities}
-    train = train_phases(args.seed, card, errs, bwd_errs)
+    tmp_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train = train_phases(args.seed, card, errs, bwd_errs, tmp_root)
+        ct = train["cifar_train"]
+        with phase("scale-out: world size 1 on NCCL through the CLIs"):
+            world1 = scaleout_world1(args.seed, card, tmp_root, ct["argv"], ct["prior"])
+        with phase(f"scale-out: world size {SCALE_RANKS} on one card (gloo)"):
+            world2 = scaleout_world2(args.seed, card, tmp_root, ct["train_dir"])
+    finally:
+        shutil.rmtree(tmp_root, ignore_errors=True)
+    scale_out = {"world1": world1, "world2": world2}
     train_launches = {"cifar_train": train["cifar_train"]["launches"],
                       "rd_sweep": train["rd_sweep"]["launches"],
-                      "kodak_train": train["kodak_train"]["launches"]}
+                      "kodak_train": train["kodak_train"]["launches"],
+                      "cli_compress_no_group": world1["no_group_launches"],
+                      "scaleout_world1_nccl_cli_train": world1["train_launches"],
+                      "scaleout_world1_nccl_cli_compress": world1["compress_launches"],
+                      **{f"scaleout_world2_rank{r['rank']}_{mode}_{p}": r[mode][f"{p}_launches"]
+                         for r in world2["ranks"] for mode in SCALE_MODES
+                         for p in ("train", "encode")}}
     train_shapes = {"cifar_train": train["timing"], "kodak_train": train["kodak_train"]}
     with phase("precision modes"):
         modes = precision_modes(codec, state0, X, Y, art, idx, res, args.seed, card, kodak,
@@ -2293,7 +2778,18 @@ def main(argv=None) -> int:
           f"{e['psnr']['highest']:.4f} dB (gap {e['psnr_gap']:+.4f}), none repeats bitwise; "
           f"decode x{DECODE_REPEATS} largest gap "
           f"{modes['decode_repeats']['deterministic']['max_gap']:.3e} [{card}]")
+    print(f"scale-out: world size 1 on NCCL bitwise equal to no group (cli.train, "
+          f"cli.compress); world size {SCALE_RANKS} on one card (gloo): training (exact) within "
+          f"{world2['train_of_bound']:.3f} of its bound; encode indices equal to world size 1 "
+          + ", ".join(f"{mode} {e['index_agreement']:.5f} (floor {e['floor']:.5f}, PSNR "
+                      f"{e['psnr_gap_db']:+.5f} dB)" for mode, e in world2["encode"].items())
+          + "; per rank " + ", ".join(
+              f"{mode} train_epoch_s {r[mode]['train_epoch_s']:.6f} (collectives "
+              f"{1e3 * r[mode]['train_collective_s']:.3f} ms), epoch_s {r[mode]['epoch_s']:.6f}"
+              for r in world2["ranks"] for mode in SCALE_MODES)
+          + f" (correctness plumbing on one card, not a scale-out speed) [{card}]")
     print(f"total: {time.perf_counter() - t_all:.2f} s [{card}]")
+    print(json.dumps({"scale_out": scale_out}))
     print(json.dumps({"precision_modes": modes}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

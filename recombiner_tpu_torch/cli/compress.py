@@ -10,7 +10,12 @@ and ``.rctb`` bitstream.
 
     python -m recombiner_tpu_torch.cli.compress --test_dir DIR --test_idx 0 \\
         --prior_path out/PRIOR_....npz --save_dir out/ [--schedule adaptive] \\
-        [--state_path out/enc_state.npz]
+        [--state_path out/enc_state.npz] [--n_devices 2]
+
+Data-parallel with ``--n_devices`` (``parallel/launch.py``): the rows of
+whole datapoints are sharded over the ranks when they divide by the world
+size (a patch config's batch is replicated: its coded rows mix every
+patch), and rank 0 writes every file.
 """
 
 from __future__ import annotations
@@ -33,14 +38,10 @@ from recombiner_tpu_torch.io.checkpoint import (
     load_prior_artifact,
     prior_fingerprint,
 )
+from recombiner_tpu_torch.parallel import launch
+from recombiner_tpu_torch.parallel.mesh import make_mesh, partition, shard_rows
 from recombiner_tpu_torch.utils.memory import resolve_remat
 from recombiner_tpu_torch.utils.platform import PRECISION_CHOICES, apply_precision_mode
-
-# The queue that ports each flag's values that the port does not run yet
-# (ROADMAP.md, port queue 1 unless named).
-_QUEUE = {
-    "n_devices": "scale-out (queue 7)",
-}
 
 PRECISION_HELP = (
     "matmul precision on the card, where the ambient f32 product is TF32 (cuBLAS and cuDNN "
@@ -79,7 +80,8 @@ def parse_args(argv=None):
                         "and resumed from if it exists")
     p.add_argument("--save_every", type=int, default=10)
     p.add_argument("--n_devices", type=int, default=None,
-                   help="data-parallel device count; the port encodes on one device")
+                   help="data-parallel ranks (one card each, or CPU processes with "
+                        "--device cpu); default every visible card")
     p.add_argument("--sync_every", type=int, default=1,
                    help="flow-control batching in the JAX package; results identical, "
                         "so the port accepts and ignores it")
@@ -152,16 +154,6 @@ def resolve_schedule(args):
                                     "fused_steps", "ft_lr", "ft_lr_schedule"))
 
 
-def unported(args) -> list:
-    """``--flag value (queue)`` for each given value that would make the port
-    run something other than what it runs; empty when it runs them all."""
-    bad = {
-        "n_devices": args.n_devices is not None and args.n_devices > 1,
-    }
-    return [f"--{name} {getattr(args, name)} ({_QUEUE[name]})"
-            for name, on in bad.items() if on]
-
-
 def resume_from(state_path: str, art, device):
     """(keyword arguments of ``compress`` that continue the snapshot at
     ``state_path``, the state to start from), or ({}, None) when there is
@@ -196,26 +188,36 @@ def resume_from(state_path: str, art, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    given = unported(args)
-    if given:
-        raise NotImplementedError("not ported yet: " + ", ".join(given) + " (ROADMAP.md)")
+    dev = resolve_device(args.device)
+    if launch.spawn_if_needed("recombiner_tpu_torch.cli.compress", argv, args.n_devices, dev):
+        return None  # the spawned ranks ran it
+    mesh = make_mesh(args.n_devices)
+    dev = launch.rank_device(dev)
+    primary = launch.is_primary()
     coding_precision = apply_precision_mode(args.precision)
     art = load_prior_artifact(args.prior_path)
     cfg = art.config
     if args.dataset is not None and args.dataset != cfg.name:
         raise SystemExit(f"--dataset {args.dataset} does not match the prior artifact "
                          f"({cfg.name})")
-    dev = resolve_device(args.device)
     X, Y = load_test_set(args.test_dir, args.test_idx, cfg)
     codec, state = init_codec(art, X.shape[0], device=dev)
     resume = {}
     if args.state_path:
         resume, restored = resume_from(args.state_path, art, dev)
         state = state if restored is None else restored
-    remat = resolve_remat(args.remat, cfg, X.shape[0], args.sample_size)
+    part = partition(mesh, X.shape[0] // cfg.patches_per_datapoint, mixes_rows=cfg.patch)
+    state = shard_rows(state, part)
+    X, Y = shard_rows(X, part), shard_rows(Y, part)
+    if mesh.world > 1 and primary:
+        print(f"Encoding on {mesh.world} ranks "
+              f"({'rows sharded' if part.sharded else 'replicated'})", flush=True)
+    remat = resolve_remat(args.remat, cfg, X.shape[0] * part.shards, args.sample_size,
+                          part.shards)
     n_groups = [codec.meta(n).n_groups for n in codec.level_names]
-    print(f"Model initialized. Expected bitrate {cfg.bitrate_of_groups(*n_groups):.3f}",
-          flush=True)
+    if primary:
+        print(f"Model initialized. Expected bitrate {cfg.bitrate_of_groups(*n_groups):.3f}",
+              flush=True)
     (n_epochs, p1_lr, p1_samples, p1_stop, ft_stop, fused_steps,
      ft_lr, ft_lr_schedule) = resolve_schedule(args)
     result = compress(
@@ -241,6 +243,8 @@ def main(argv=None):
         **resume,
     )
 
+    if not primary:
+        return result
     os.makedirs(args.save_dir, exist_ok=True)
     np.savetxt(os.path.join(args.save_dir, f"Distortion_test_id_{args.test_idx}.csv"),
                np.atleast_2d(result.distortion), delimiter=",")

@@ -11,7 +11,9 @@ on the CPU), printing one JSON point per target and writing the curve to
 and encodes ``--n_test`` more; ``--train_state_dir`` snapshots EM at every
 chunk boundary and resumes from it, ``--state_dir`` the encode;
 ``--save_prior_dir``/``--load_prior_dir`` keep or reuse the priors and
-``--skip_encode`` stops after training.
+``--skip_encode`` stops after training. ``--n_devices`` runs both
+data-parallel (``parallel/launch.py``): the training rows and the test rows
+are each sharded by whole datapoints (or replicated), and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from recombiner_tpu_torch.io.checkpoint import (
     prior_fingerprint,
     save_prior_artifact,
 )
+from recombiner_tpu_torch.parallel import launch
+from recombiner_tpu_torch.parallel.mesh import Partition, make_mesh, partition, shard_rows
 from recombiner_tpu_torch.priors import trainer
 from recombiner_tpu_torch.priors.artifact import build_prior_artifact
 from recombiner_tpu_torch.utils.memory import resolve_remat
@@ -88,7 +92,8 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--out", default="rd_curve.json")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="data-parallel device count; the port runs on one device")
+                   help="data-parallel ranks (one card each, or CPU processes with "
+                        "--device cpu); default every visible card")
     p.add_argument("--n_test", type=int, default=None,
                    help="with --synthetic: synthetic test datapoints (default synthetic // 2)")
     p.add_argument("--remat", action=argparse.BooleanOptionalAction, default=None)
@@ -122,9 +127,10 @@ def resolve_schedule_args(args):
         fused_steps=args.fused_steps, ft_lr=args.ft_lr, ft_lr_schedule=args.ft_lr_schedule))
 
 
-def train_prior(args, cfg, Xtr, Ytr, max_bitrate: float, dev):
-    """EM for one target, resumed from and snapshotted to
-    ``--train_state_dir`` when given; returns its artifact."""
+def train_prior(args, cfg, Xtr, Ytr, max_bitrate: float, dev, part: Partition):
+    """EM for one target on this rank's rows of ``part`` (Xtr, Ytr), resumed
+    from and snapshotted to ``--train_state_dir`` when given; returns its
+    artifact (built on every rank)."""
     state0, priors0, kl_beta0, done, controller0 = None, None, 1e-8, 0, None
     ts_path = None
     if args.train_state_dir is not None:
@@ -136,10 +142,13 @@ def train_prior(args, cfg, Xtr, Ytr, max_bitrate: float, dev):
         if loaded is not None:
             state0, priors0, kl_beta0, done, extra = loaded
             controller0 = extra.get("controller")
+            state0 = shard_rows(state0, part)
             print(f"Resumed EM state from {ts_path} ({done} iters done, controller "
                   f"{controller0})", flush=True)
 
     def log(em_iter, rec, state, priors):
+        if not launch.is_primary():
+            return
         rate = (f" rate {rec['realized_bitrate']:.3f} aim {rec['budget_aim']:.3f}"
                 if "realized_bitrate" in rec else "")
         print(f"  EM {done + em_iter + 1}/{args.n_em_iters}: mse {rec['mse']:.5f} "
@@ -159,7 +168,7 @@ def train_prior(args, cfg, Xtr, Ytr, max_bitrate: float, dev):
         checkpoint_fn=ckpt if ts_path is not None else None,
         state=state0, priors=priors0, kl_beta=kl_beta0, rate_control=args.rate_control,
         checkpoint_every=args.em_chunk, probe_every=args.probe_every,
-        controller=controller0, em_iter_offset=done, schedule_total=args.n_em_iters,
+        controller=controller0, em_iter_offset=done, schedule_total=args.n_em_iters, part=part,
     )
     stp = (res.controller or {}).get("em_stop")
     if stp:
@@ -173,16 +182,19 @@ def train_prior(args, cfg, Xtr, Ytr, max_bitrate: float, dev):
 
 
 def encode_point(args, art, cfg, Xte, Yte, max_bitrate: float, remat: bool, dev,
-                 coding_precision=None) -> dict:
+                 coding_precision, part: Partition) -> dict:
     """Encode the test set with ``art`` (resumable through ``--state_dir``),
-    its finetunes at ``coding_precision``, and return the RD point."""
-    codec, state = init_codec(art, n_rows=Xte.shape[0], device=dev)
+    its finetunes at ``coding_precision``, and return the RD point. Xte and
+    Yte are this rank's rows of ``part``; the state is laid out alike."""
+    n_rows = part.global_rows(Xte.shape[0])
+    codec, state = init_codec(art, n_rows=n_rows, device=dev)
     state_path, resume = None, {}
     if args.state_dir is not None:
         os.makedirs(args.state_dir, exist_ok=True)
         state_path = os.path.join(args.state_dir, f"encode_state_{cfg.name}_{max_bitrate:g}")
         resume, restored = compress_cli.resume_from(state_path, art, dev)
         state = state if restored is None else restored
+    state = shard_rows(state, part)
     (n_epochs, p1_lr, p1_samples, p1_stop, ft_stop, fused_steps, ft_lr,
      ft_lr_schedule) = resolve_schedule_args(args)
     enc = compress(
@@ -204,11 +216,11 @@ def encode_point(args, art, cfg, Xte, Yte, max_bitrate: float, remat: bool, dev,
         "target_bitrate": max_bitrate,
         "actual_bitrate": enc.bitrate,
         "distortion_mean": float(np.mean(enc.distortion)),
-        "n_rows": int(Xte.shape[0]),
+        "n_rows": int(n_rows),
         "n_groups": {n: int(codec.meta(n).n_groups) for n in codec.level_names},
         "timings": enc.timings,
     }
-    if args.export_dir is not None:
+    if args.export_dir is not None and launch.is_primary():
         from recombiner_tpu_torch.data.export import export_reconstructions
 
         point["exported"] = export_reconstructions(
@@ -219,12 +231,14 @@ def encode_point(args, art, cfg, Xte, Yte, max_bitrate: float, remat: bool, dev,
 
 def main(argv=None):
     args = parse_args(argv)
-    given = compress_cli.unported(args)
-    if given:
-        raise NotImplementedError("not ported yet: " + ", ".join(given) + " (ROADMAP.md)")
+    dev = resolve_device(args.device)
+    if launch.spawn_if_needed("recombiner_tpu_torch.cli.rd_sweep", argv, args.n_devices, dev):
+        return None  # the spawned ranks ran it
+    mesh = make_mesh(args.n_devices)
+    dev = launch.rank_device(dev)
+    primary = launch.is_primary()
     # before training: --precision highest makes the training exact too
     coding_precision = apply_precision_mode(args.precision)
-    dev = resolve_device(args.device)
     cfg = get_config(args.dataset)
     if args.em_chunk is None:
         args.em_chunk = 1 if cfg.name == "audio" else 10
@@ -242,8 +256,14 @@ def main(argv=None):
         from recombiner_tpu_torch.data.audio import load_wav_clip
 
         Xte, Yte = load_wav_clip(args.test_wav, cfg)
-    Xtr, Ytr = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (Xtr, Ytr))
-    remat = resolve_remat(args.remat, cfg, Xte.shape[0], args.sample_size)
+    # training rows and test rows are sharded separately
+    ppd = cfg.patches_per_datapoint
+    part_tr = partition(mesh, Xtr.shape[0] // ppd)
+    part_te = partition(mesh, Xte.shape[0] // ppd, mixes_rows=cfg.patch)
+    Xtr, Ytr = (shard_rows(torch.from_numpy(np.ascontiguousarray(a)), part_tr).to(dev)
+                for a in (Xtr, Ytr))
+    remat = resolve_remat(args.remat, cfg, Xte.shape[0], args.sample_size, part_te.shards)
+    Xte, Yte = shard_rows(Xte, part_te), shard_rows(Yte, part_te)
 
     points = []
     for max_bitrate in args.bitrates:
@@ -252,11 +272,13 @@ def main(argv=None):
         if args.load_prior_dir is not None:
             art = load_prior_artifact(os.path.join(args.load_prior_dir, prior_name))
         else:
-            art = train_prior(args, cfg, Xtr, Ytr, max_bitrate, dev)
-            if args.save_prior_dir is not None:
+            art = train_prior(args, cfg, Xtr, Ytr, max_bitrate, dev, part_tr)
+            if args.save_prior_dir is not None and primary:
                 os.makedirs(args.save_prior_dir, exist_ok=True)
                 save_prior_artifact(os.path.join(args.save_prior_dir, prior_name), art)
         if args.skip_encode:
+            if not primary:
+                continue
             if args.load_prior_dir is not None:
                 print(f"(--skip_encode) prior loaded for bitrate {max_bitrate}; nothing to do",
                       flush=True)
@@ -267,10 +289,13 @@ def main(argv=None):
                       "DISCARDED — pass --save_prior_dir to keep it", flush=True)
             continue
         point = encode_point(args, art, cfg, Xte, Yte, max_bitrate, remat, dev,
-                             coding_precision)
+                             coding_precision, part_te)
         points.append(point)
-        print(json.dumps(point), flush=True)
+        if primary:
+            print(json.dumps(point), flush=True)
 
+    if not primary:
+        return points
     with open(args.out, "w") as f:
         json.dump({"dataset": args.dataset, "points": points}, f, indent=2)
     print(f"RD curve -> {args.out}", flush=True)

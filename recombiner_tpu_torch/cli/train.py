@@ -7,7 +7,12 @@ boundary, the same ``LOSS_*.json`` history and the same log lines
 (training PSNR, or RMSD for protein).
 
     python -m recombiner_tpu_torch.cli.train --train_dir DIR --dataset cifar \\
-        --max_bitrate 2.0 --train_size 2000 --saving_dir out/
+        --max_bitrate 2.0 --train_size 2000 --saving_dir out/ [--n_devices 2]
+
+Data-parallel with ``--n_devices`` (``parallel/launch.py``: spawned ranks,
+the env gate or torchrun): every rank loads the same seeded subset and
+keeps its block of whole datapoints (replicated when they do not divide by
+the world size); rank 0 writes the artifact and the history.
 """
 
 from __future__ import annotations
@@ -25,11 +30,10 @@ from recombiner_tpu_torch.data.load_data import load_training_set
 from recombiner_tpu_torch.device import precision, resolve_device
 from recombiner_tpu_torch.io.checkpoint import save_prior_artifact
 from recombiner_tpu_torch.metrics import batch_psnr
+from recombiner_tpu_torch.parallel import launch
+from recombiner_tpu_torch.parallel.mesh import make_mesh, partition, shard_rows
 from recombiner_tpu_torch.priors import trainer
 from recombiner_tpu_torch.priors.artifact import build_prior_artifact
-
-# the queue that ports the flag values the port does not run yet (ROADMAP.md)
-N_DEVICES_QUEUE = "scale-out (queue 1, item 7)"
 
 
 def parse_args(argv=None):
@@ -58,7 +62,8 @@ def parse_args(argv=None):
                    help="explicit adaptive EM stop spec (overrides --em_schedule's preset)")
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--n_devices", type=int, default=None,
-                   help="data-parallel device count; the port trains on one device")
+                   help="data-parallel ranks (one card each, or CPU processes with "
+                        "--device cpu); default every visible card")
     p.add_argument("--rate_control", action=argparse.BooleanOptionalAction, default=True,
                    help="steer the EM KL window so that the realized post-grouping bitrate "
                         "lands within about 1.5%% of --max_bitrate")
@@ -79,18 +84,25 @@ def log_line(cfg, Y: np.ndarray, y_hat: np.ndarray, em_iter: int, rec: dict,
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.n_devices is not None and args.n_devices > 1:
-        raise NotImplementedError(f"not ported yet: --n_devices {args.n_devices} "
-                                  f"({N_DEVICES_QUEUE}) (ROADMAP.md)")
     dev = resolve_device(args.device)
+    if launch.spawn_if_needed("recombiner_tpu_torch.cli.train", argv, args.n_devices, dev):
+        return None  # the spawned ranks ran it
+    mesh = make_mesh(args.n_devices)
+    dev = launch.rank_device(dev)
+    primary = launch.is_primary()
     cfg = get_config(args.dataset)
 
     n_datapoints = args.train_size // cfg.patches_per_datapoint if cfg.patch else args.train_size
     X_np, Y_np = load_training_set(args.train_dir, cfg, args.seed, n_datapoints)
     train_size = X_np.shape[0]
-    print(f"Prior is trained on {train_size} patches/datapoints.", flush=True)
-    X = torch.from_numpy(X_np).to(dev)
-    Y = torch.from_numpy(Y_np).to(dev)
+    if primary:
+        print(f"Prior is trained on {train_size} patches/datapoints.", flush=True)
+    part = partition(mesh, train_size // cfg.patches_per_datapoint)
+    if mesh.world > 1 and primary:
+        print(f"Training on {mesh.world} ranks "
+              f"({'rows sharded' if part.sharded else 'replicated'})", flush=True)
+    X = shard_rows(torch.from_numpy(X_np), part).to(dev)
+    Y = shard_rows(torch.from_numpy(Y_np), part).to(dev)
 
     os.makedirs(args.saving_dir, exist_ok=True)
     stem = f"train_size_{train_size}_max_bitrate={args.max_bitrate:.3f}"
@@ -99,15 +111,19 @@ def main(argv=None):
     t0 = time.perf_counter()
 
     def checkpoint_fn(em_iter, state, priors, kl_beta, controller):
+        # every rank builds (the state is gathered); rank 0 writes
         art = build_prior_artifact(state, priors, kl_beta, cfg, codebook_seed=args.seed)
-        save_prior_artifact(ckpt_path, art)
+        if primary:
+            save_prior_artifact(ckpt_path, art)
 
     def log_fn(em_iter, rec, state, priors):
         with torch.no_grad(), precision():
             y_hat = trainer.forward(state, X, cfg,
                                     generator=torch.Generator(device=dev).manual_seed(em_iter))
-        print(log_line(cfg, Y_np, y_hat[:, 0].cpu().numpy(), em_iter, rec,
-                       time.perf_counter() - t0), flush=True)
+        y_hat = launch.fetch_global(y_hat[:, 0], part)
+        if primary:
+            print(log_line(cfg, Y_np, y_hat, em_iter, rec, time.perf_counter() - t0),
+                  flush=True)
 
     res = trainer.em_train(
         torch.Generator(device=dev).manual_seed(args.seed), cfg, X, Y,
@@ -116,7 +132,10 @@ def main(argv=None):
         checkpoint_fn=checkpoint_fn, log_fn=log_fn, rate_control=args.rate_control,
         em_stop=trainer.resolve_em_schedule(
             args.em_schedule, tuple(args.em_stop) if args.em_stop else None, args.n_em_iters),
+        part=part,
     )
+    if not primary:
+        return res
     stp = (res.controller or {}).get("em_stop")
     if stp:
         print(f"em_stop: plateau+rate-settled at EM {stp['stopped_at']}/{stp['schedule']}",

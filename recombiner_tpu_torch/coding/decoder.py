@@ -41,6 +41,7 @@ from recombiner_tpu_torch.io.convert import torch_params_from_artifact
 from recombiner_tpu_torch.models.gaussian import Gaussian, scale_transform
 from recombiner_tpu_torch.models.mappings import lpe_to_pe, sample_hierarchical_latents
 from recombiner_tpu_torch.ops.fused_inr import inr_forward_fused
+from recombiner_tpu_torch.parallel.mesh import Partition, gather_rows, local_rows
 
 LEVELS = ("w", "h", "hh")
 
@@ -81,6 +82,13 @@ class LevelState:
     compressed: torch.Tensor  # (R, G) bool
     indices: torch.Tensor  # (R, G) transmitted sample indices
 
+    def map_rows(self, fn) -> "LevelState":
+        """``fn`` on every per-row tensor (all of them lead with the rows)."""
+        return LevelState(q=Gaussian(fn(self.q.loc), fn(self.q.log_scale)),
+                          **{f: fn(getattr(self, f)) for f in ("frozen_mask", "frozen_val",
+                                                               "kl_beta", "compressed",
+                                                               "indices")})
+
 
 @dataclasses.dataclass
 class Codec:
@@ -109,12 +117,27 @@ class CodecState:
     w: LevelState
     h: Optional[LevelState] = None
     hh: Optional[LevelState] = None
+    # how the rows lie over the ranks (None: one process, all rows)
+    part: Optional[Partition] = None
 
     def level(self, name: str) -> LevelState:
         return getattr(self, name)
 
     def replace_level(self, name: str, ls: LevelState) -> "CodecState":
         return dataclasses.replace(self, **{name: ls})
+
+    def _map_rows(self, fn, part) -> "CodecState":
+        return CodecState(part=part, **{n: None if self.level(n) is None
+                                        else self.level(n).map_rows(fn) for n in LEVELS})
+
+    def shard_rows(self, part: Partition) -> "CodecState":
+        """This rank's block of a whole state's rows, recorded as laid out
+        by ``part``."""
+        return self._map_rows(lambda t: local_rows(t, part), part)
+
+    def gathered(self) -> "CodecState":
+        """Every rank's rows on every rank (a collective when sharded)."""
+        return self._map_rows(lambda t: gather_rows(t, self.part), None)
 
 
 def _round_up(x: int, m: int = 128) -> int:
@@ -297,15 +320,19 @@ def draw_noise(codec: Codec, state: CodecState, cfg: ModalityConfig, sample_size
                generator: Optional[torch.Generator] = None) -> Noise:
     """The noise of one ``predict``, drawn from ``generator`` in the order the
     JAX package splits its key (LPE, then w, h, hh: ``encoder.py:304``,
-    ``models/mappings.py:147``), or zero without one."""
-    R, S = state.w.q.loc.shape[0], sample_size
+    ``models/mappings.py:147``), or zero without one. Every rank's rows are
+    drawn and this rank keeps its own (``state.part``), so a row's noise
+    does not depend on the world size."""
+    part, S = state.part, sample_size
+    R = state.w.q.loc.shape[0]
     shapes = [(R, S, *cfg.lpe_spatial, cfg.latent_dim), (R, S, cfg.n_inr_params)]
     for name in codec.level_names[1:]:
         shapes.append((state.level(name).q.loc.shape[0], S, codec.meta(name).D))
     dev = state.w.q.loc.device
     if generator is None:
         return [torch.zeros(s, device=dev) for s in shapes]
-    return [torch.randn(s, generator=generator, device=dev) for s in shapes]
+    return [local_rows(torch.randn((part.global_rows(s[0]) if part else s[0], *s[1:]),
+                                   generator=generator, device=dev), part) for s in shapes]
 
 
 def predict(codec: Codec, state: CodecState, X: torch.Tensor, cfg: ModalityConfig,

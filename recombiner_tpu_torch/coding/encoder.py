@@ -49,6 +49,13 @@ from recombiner_tpu_torch.config import ModalityConfig
 from recombiner_tpu_torch.device import deterministic_convs, exact_f32
 from recombiner_tpu_torch.device import precision as precision_scope
 from recombiner_tpu_torch.models.gaussian import Gaussian, kl_gaussian, scale_transform
+from recombiner_tpu_torch.parallel.mesh import (
+    Partition,
+    gather_rows,
+    is_sharded,
+    local_rows,
+    ordered_sum,
+)
 
 LOG2 = math.log(2.0)
 KL_ADJUST_GAP = 10  # epochs between beta annealing steps (encoder.py:487)
@@ -194,14 +201,21 @@ class AdamState:
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
 
-    def leaves(self, scheduled: bool) -> List[np.ndarray]:
+    def leaves(self, scheduled: bool, part: Optional[Partition] = None) -> List[np.ndarray]:
         """The optax state's leaves in ``jax.tree_util`` order, as an encode
         snapshot stores them: count, mu (loc and log_scale of each level, the
         levels sorted: h, hh, w), nu alike, and with a schedule
-        (``_make_opt``'s chain) the schedule's count after them."""
+        (``_make_opt``'s chain) the schedule's count after them. The moments
+        of rows sharded by ``part`` are gathered (every rank must call)."""
         count = np.asarray(self.count, np.int32)
-        out = [count] + [t.detach().cpu().numpy() for t in self.mu + self.nu]
+        out = [count] + [gather_rows(t.detach(), part).cpu().numpy()
+                         for t in self.mu + self.nu]
         return out + [count] if scheduled else out
+
+    def shard_rows(self, part: Optional[Partition]) -> "AdamState":
+        """This rank's rows of a whole state's moments."""
+        return AdamState(self.count, [local_rows(t, part) for t in self.mu],
+                         [local_rows(t, part) for t in self.nu])
 
     @classmethod
     def from_leaves(cls, leaves: Sequence, scheduled: bool, device,
@@ -284,7 +298,7 @@ def _epoch(codec: Codec, state: CodecState, params: List[torch.Tensor], X: torch
     Returns (state, Adam state, loss, scaled mse), the last two detached."""
     state = _with_posteriors(state, trainable_levels(codec), params)
     drawn = ({"generator": source} if isinstance(source, torch.Generator)
-             else {"noise": source()})
+             else {"noise": [local_rows(torch.as_tensor(n), state.part) for n in source()]})
     loss, mse = elbo_loss(codec, state, X, Y, cfg, sample_size, remat=remat, **drawn)
     grads = torch.autograd.grad(loss, params)
     if i % KL_ADJUST_GAP == 0:
@@ -300,6 +314,10 @@ def optimize(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
              remat: bool = False, precision: Optional[str] = None):
     """MC-ELBO posterior optimisation with beta annealing, in the order of
     ``encoder.py:487-569`` (``_epoch``; ``i`` restarts at 0 in each call).
+    Data-parallel (``state.part`` sharded, X and Y this rank's rows) it
+    needs no collective: A and the convs are frozen, the loss's terms are
+    per row, and a callable noise source returns every rank's noise, of
+    which each keeps its rows.
     Adam starts fresh unless ``opt_state`` is given; with
     ``return_opt_state`` the result is (state, Adam state), so one run can
     be split into chunks without changing it. Fresh noise per epoch from
@@ -340,14 +358,22 @@ def optimize_adaptive(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch
     The window sum is an f32 tensor on the device, summed in epoch order,
     and the test is evaluated in f32 as the JAX package's is; the host
     reads it once per window. Returns (state, Adam state, es_carry as
-    floats, global epochs done, stopped)."""
+    floats, global epochs done, stopped).
+
+    Data-parallel: each rank sums its rows' loss; at a window's end the
+    window is summed over the ranks in rank order before the test, so every
+    rank stops at the same epoch. The carried sum is global: rank 0 starts
+    from it, the others from 0."""
     if monitor not in ("loss", "mse"):
         raise ValueError(f"monitor must be 'loss' or 'mse', not {monitor!r}")
     window = int(window)
     params = _trainables(codec, state)
     opt_state = adam_init(params) if opt_state is None else opt_state
     dev = state.w.q.loc.device
+    part = state.part
     prev, cur = (torch.tensor(float(v), dtype=torch.float32, device=dev) for v in es_carry)
+    if is_sharded(part) and part.mesh.rank != 0:
+        cur = torch.zeros_like(cur)
     tol = torch.tensor(float(rel_tol), dtype=torch.float32, device=dev)
     i, stopped = int(epoch0), False
     with precision_scope(precision), deterministic_convs():
@@ -357,11 +383,12 @@ def optimize_adaptive(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch
             cur = cur + (mse if monitor == "mse" else loss)
             i += 1
             if i % window == 0:
-                win = cur / window
+                win = ordered_sum(cur, part) / window
                 if i >= min_epoch:
                     stopped = bool((prev - win < tol * win.abs()) & torch.isfinite(prev))
                 prev, cur = win, torch.zeros_like(cur)
-    return _settled(codec, state, params), opt_state, (prev.item(), cur.item()), i, stopped
+    return (_settled(codec, state, params), opt_state,
+            (prev.item(), ordered_sum(cur, part).item()), i, stopped)
 
 
 # ----------------------------------------------------------- encode step

@@ -1,6 +1,6 @@
-"""The progressive encode loop of ``recombiner_tpu/coding/progressive.py``
-(less its multi-device options): optimise the posteriors (phase 1, a
-fixed number of epochs or up to a plateau), then, level by level (hh, h,
+"""The progressive encode loop of ``recombiner_tpu/coding/progressive.py``:
+optimise the posteriors (phase 1, a fixed number of epochs or up to a
+plateau), then, level by level (hh, h,
 w for a patch config; w alone otherwise), code every row's highest-KL
 group one step at a time, each step followed by a finetune of every level
 with a fresh Adam (a fixed budget or up to a plateau), snapshot along the
@@ -18,6 +18,14 @@ The noise comes from one ``torch.Generator`` threaded through every epoch
 (or, for CRN finetunes, a stream derived from its seed); its numbers
 differ from ``jax.random``'s, so two packages' encodes of the same data
 differ sample by sample but write the same bitstream and snapshot formats.
+
+Data-parallel (the state's rows sharded by ``state.part``, X and Y this
+rank's rows, as ``cli/compress`` lays them out): every host decision reads
+a global value on every rank (the plateau stops, the groups already coded,
+whether any is), the snapshots gather the rows and rank 0 writes them, and
+every rank gathers the indices and decodes the same unsharded arrays
+(``progressive.py:533-548``), so every rank returns the same
+``EncodeResult``.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ from recombiner_tpu_torch.config import ModalityConfig
 from recombiner_tpu_torch.device import precision
 from recombiner_tpu_torch.io import encode_state
 from recombiner_tpu_torch.metrics import UNROUNDED_PSNR, metric
+from recombiner_tpu_torch.parallel.launch import is_primary
+from recombiner_tpu_torch.parallel.mesh import gather_rows, global_any, global_max
 from recombiner_tpu_torch.utils.timing import sync
 
 
@@ -61,11 +71,13 @@ def distortion_of(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Ten
                   cfg: ModalityConfig):
     """The metric of one posterior sample (noise from a generator seeded 0),
     as the JAX package's ``distortion_of`` draws with ``key(0)``, at the
-    ambient precision as its ``predict`` runs."""
+    ambient precision as its ``predict`` runs; of every rank's rows."""
     gen = torch.Generator(device=codec.device).manual_seed(0)
     with torch.no_grad(), precision():
         y = predict(codec, state, X, cfg, 1, generator=gen)[:, 0]
-    return metric(Y.cpu().numpy(), y.cpu().numpy(), cfg.name)
+    part = state.part
+    return metric(gather_rows(Y, part).cpu().numpy(), gather_rows(y, part).cpu().numpy(),
+                  cfg.name)
 
 
 def resolve_coding_precision(coding_precision: Optional[str],
@@ -88,8 +100,9 @@ def kl_bits_summary(codec: Codec, state: CodecState) -> Dict[str, float]:
     out = {}
     for name in codec.level_names:
         ls = state.level(name)
-        bits = (group_kl(ls, codec.meta(name)) / np.log(2.0)).cpu().numpy()
-        mask = ~ls.compressed.cpu().numpy()
+        bits = gather_rows(group_kl(ls, codec.meta(name)) / np.log(2.0), state.part)
+        bits = bits.cpu().numpy()
+        mask = ~gather_rows(ls.compressed, state.part).cpu().numpy()
         if mask.any():
             out[f"{name}_max_bits"] = float(bits[mask].max())
             out[f"{name}_ave_bits"] = float(bits[mask].mean())
@@ -148,12 +161,13 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
       the bitstream's format does not depend on either.
 
     Resume: ``phase1_epochs_done``, ``phase1_opt_leaves`` (optax's leaf
-    order), ``phase1_es`` and ``resume_generator_state`` continue phase 1
-    where a snapshot left it; a state whose groups are partly coded skips
-    phase 1 and, level by level, the coded groups. ``state_extra`` is merged into every
-    snapshot's header. Snapshots go through
-    ``encode_state.save_encode_state``, looked up at each call."""
+    order, every rank's rows), ``phase1_es`` and ``resume_generator_state``
+    continue phase 1 where a snapshot left it; a state whose groups are
+    partly coded skips phase 1 and, level by level, the coded groups.
+    ``state_extra`` is merged into every snapshot's header. Snapshots go
+    through ``encode_state.save_encode_state``, looked up at each call."""
     dev = codec.device
+    part = state.part
     coding_precision = resolve_coding_precision(coding_precision, cfg)
     X = torch.as_tensor(X, dtype=torch.float32, device=dev)
     Y = torch.as_tensor(Y, dtype=torch.float32, device=dev)
@@ -170,33 +184,41 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
     scheduled = phase1_lr is not None
     timings: Dict[str, float] = {}
 
+    def log(*a, **k) -> None:
+        # every rank computes what ``verbose`` reports (its distortions are
+        # collectives); rank 0 prints
+        if is_primary():
+            print(*a, **k)
+
     def snapshot(state: CodecState, extra: Dict, opt_state=None) -> None:
+        # on every rank: the rows are gathered, rank 0 writes
         if state_path is None:
             return
         encode_state.save_encode_state(
             state_path, state,
             extra={**extra, encode_state.GENERATOR_FIELD: encode_state.generator_record(generator),
                    **(state_extra or {})},
-            opt_leaves=None if opt_state is None else opt_state.leaves(scheduled))
+            opt_leaves=None if opt_state is None else opt_state.leaves(scheduled, part))
 
     def any_coded(state: CodecState) -> bool:
-        return any(bool(state.level(lv).compressed.any()) for lv in codec.level_names)
+        return global_any(any(bool(state.level(lv).compressed.any())
+                              for lv in codec.level_names), part)
 
     t0 = time.perf_counter()
     if verbose:
         d0 = distortion_of(codec, state, X, Y, cfg)
-        print(f"Initialization: average distortion {np.mean(d0):.4f}", flush=True)
+        log(f"Initialization: average distortion {np.mean(d0):.4f}", flush=True)
     resuming = any_coded(state)
     if resuming and verbose:
-        print("Resuming encode from restored state; skipping phase-1 optimization", flush=True)
+        log("Resuming encode from restored state; skipping phase-1 optimization", flush=True)
 
     timings["phase1_epochs"] = 0
     if n_optimize_epochs > phase1_epochs_done and not resuming:
         opt_state = (None if phase1_opt_leaves is None
                      else AdamState.from_leaves(phase1_opt_leaves, scheduled, dev,
-                                                len(codec.level_names)))
+                                                len(codec.level_names)).shard_rows(part))
         if opt_state is not None and verbose:
-            print(f"Resuming phase-1 optimization at {phase1_epochs_done}/{n_optimize_epochs} "
+            log(f"Resuming phase-1 optimization at {phase1_epochs_done}/{n_optimize_epochs} "
                   "epochs", flush=True)
         rate = cosine_lr(*phase1_lr, n_optimize_epochs) if scheduled else lr
         s1 = phase1_sample_size or sample_size
@@ -223,7 +245,7 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
             snapshot(state, {"phase1_epochs_done": n_optimize_epochs if stopped else done,
                              **extra}, opt_state)
             if verbose:
-                print(f"  optimize {done}/{n_optimize_epochs} epochs"
+                log(f"  optimize {done}/{n_optimize_epochs} epochs"
                       f"{' (plateau stop)' if stopped else ''} "
                       f"({time.perf_counter() - t0:.0f}s)", flush=True)
         timings["phase1_epochs"] = done
@@ -231,7 +253,7 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
     timings["optimize_s"] = time.perf_counter() - t0
     if verbose:
         d1 = distortion_of(codec, state, X, Y, cfg)
-        print(f"Optimization finished ({timings['optimize_s']:.0f}s): average distortion "
+        log(f"Optimization finished ({timings['optimize_s']:.0f}s): average distortion "
               f"{np.mean(d1):.4f} {kl_bits_summary(codec, state)}", flush=True)
 
     t1 = time.perf_counter()
@@ -240,12 +262,15 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
     noise = finetune_noise(generator, finetune_crn)
     ft_w, ft_tol, ft_min = finetune_stop if finetune_stop is not None else (0, 0.0, 0)
     timings["finetune_epochs"] = timings["finetune_budget"] = 0
+    # The JAX package caps its un-synced dispatch window at 8 group steps on
+    # several devices (progressive.py:356-372), for an XLA rendezvous fault;
+    # the port dispatches each step's collectives synchronously and needs none.
     for level in order:
         n_groups = codec.meta(level).n_groups
         per_call = int(fused_steps) if fused[level] else 1
         report_at = set(np.linspace(0, n_groups - 1, 10).astype(int).tolist())
         # groups already coded (a resumed state) are skipped
-        step_i = int(state.level(level).compressed.sum(1).max())
+        step_i = global_max(int(state.level(level).compressed.sum(1).max()), part)
         while step_i < n_groups:
             k = min(per_call, n_groups - step_i)
             state, ran = encode_chunk(
@@ -259,23 +284,24 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
             if verbose:
                 if report_at & set(range(step_i - k, step_i)):
                     d = distortion_of(codec, state, X, Y, cfg)
-                    print(f"[{level}] {step_i}/{n_groups} groups coded; distortion "
+                    log(f"[{level}] {step_i}/{n_groups} groups coded; distortion "
                           f"{np.mean(d):.4f}", flush=True)
                 else:
-                    print(f"[{level}] {step_i}/{n_groups}", flush=True)
+                    log(f"[{level}] {step_i}/{n_groups}", flush=True)
             if fused[level] or step_i % save_every == 0:
                 snapshot(state, {"level": level, "step": step_i - 1,
                                  "phase1_epochs_done": n_optimize_epochs})
     sync(state.w.indices)
     timings["code_s"] = time.perf_counter() - t1
-    indices = {name: state.level(name).indices.cpu().numpy().astype(np.int32)
+    indices = {name: gather_rows(state.level(name).indices, part).cpu().numpy().astype(np.int32)
                for name in codec.level_names}
     # the final reconstruction through the decoder, from the indices alone:
-    # exactly what a receiver renders
-    y_pred = decode(codec, indices, X, cfg).cpu().numpy()
-    dist = metric(Y.cpu().numpy(), y_pred, cfg.name)
+    # exactly what a receiver renders; every rank decodes every row
+    y_pred = decode(codec, indices, gather_rows(X, part), cfg).cpu().numpy()
+    dist = metric(gather_rows(Y, part).cpu().numpy(), y_pred, cfg.name)
+    state = state.gathered()
     bitrate = cfg.bitrate_of_groups(*(codec.meta(n).n_groups for n in codec.level_names))
     if verbose:
-        print(f"Encode finished: distortion {np.mean(dist):.4f} @ {bitrate:.4f}", flush=True)
+        log(f"Encode finished: distortion {np.mean(dist):.4f} @ {bitrate:.4f}", flush=True)
     return EncodeResult(state=state, indices=indices, distortion=np.asarray(dist),
                         bitrate=bitrate, reconstruction=y_pred, timings=timings)

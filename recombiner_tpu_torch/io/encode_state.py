@@ -9,6 +9,12 @@ phase-1 Adam state as ``__opt__/{i}`` in optax's leaf order
 package stores its threefry key as ``resume_key``; the port stores its
 ``torch.Generator`` state under a field of its own (``GENERATOR_FIELD``),
 which the JAX package does not read.
+
+Data-parallel: every rank calls ``save_encode_state``; a sharded state is
+gathered into the single-device layout (the caller passes the Adam leaves
+gathered, ``AdamState.leaves(scheduled, part)``) and rank 0 writes, so a
+snapshot resumes at any world size: load on every rank, then
+``shard_rows``.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from recombiner_tpu_torch.coding.decoder import LEVELS, CodecState, LevelState
 from recombiner_tpu_torch.device import DeviceLike, resolve_device
 from recombiner_tpu_torch.io.atomic import SnapshotRejected, atomic_savez
 from recombiner_tpu_torch.io.convert import level_arrays
+from recombiner_tpu_torch.parallel.launch import is_primary
 from recombiner_tpu_torch.models.gaussian import Gaussian
 
 STATE_VERSION = 2
@@ -56,7 +63,11 @@ def generator_state(header: dict, device: DeviceLike) -> Optional[torch.Tensor]:
 def save_encode_state(path: str, state: CodecState, *, extra: Optional[dict] = None,
                       opt_leaves: Optional[list] = None) -> None:
     """Write ``state`` (and ``opt_leaves``, the phase-1 Adam state's leaves)
-    atomically, with ``extra`` merged into the header."""
+    atomically, with ``extra`` merged into the header; every rank's rows,
+    written by rank 0."""
+    state = state.gathered()
+    if not is_primary():
+        return
     arrays = {}
     levels = [name for name in LEVELS if state.level(name) is not None]
     for name in levels:

@@ -7,6 +7,10 @@ order with conv weights (*k, I, O) (``io/convert.py::prior_state_leaves``),
 so that a file written by either package loads in the other. Version 2
 adds the controller dict and ``schedule_total``; version 1 files load with
 both None.
+
+Data-parallel: every rank calls ``save_train_state``; the sharded rows are
+gathered into the single-device layout and rank 0 writes, so a snapshot
+resumes at any world size (load on every rank, then ``shard_rows``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from recombiner_tpu_torch.config import ModalityConfig
 from recombiner_tpu_torch.device import DeviceLike
 from recombiner_tpu_torch.io.atomic import SnapshotRejected, atomic_savez
 from recombiner_tpu_torch.io.convert import prior_state_from, prior_state_leaves
+from recombiner_tpu_torch.parallel.launch import is_primary
 from recombiner_tpu_torch.priors.trainer import Priors, PriorState
 
 STATE_VERSION = 2
@@ -32,7 +37,9 @@ def save_train_state(path: str, state: PriorState, priors: Priors, kl_beta: floa
     seen_above) and ``schedule_total`` the whole planned schedule: a resume
     continues the controller where it stood and keeps its schedule
     fractions anchored to the whole run."""
-    st, pr = prior_state_leaves(state, priors)
+    st, pr = prior_state_leaves(state.gathered(), priors)
+    if not is_primary():
+        return
     arrays = {f"state/{i}": a for i, a in enumerate(st)}
     arrays.update({f"priors/{i}": a for i, a in enumerate(pr)})
     header = {"version": STATE_VERSION, "kl_beta": float(kl_beta), "em_iter": int(em_iter),

@@ -222,12 +222,37 @@ class SirenMLP(torch.autograd.Function):
         return dx, dtheta, None, None, None
 
 
+class ATransform(torch.autograd.Function):
+    """``lat @ A_l`` whose latent gradient is one product for every row count:
+    ``grad @ A_l^T`` through a contiguous copy of A_l^T, a row-major product
+    as the forward is. For ``grad @ A_l.t()`` (a transposed operand) cuBLAS
+    picks its kernel by the row count, and on the H100 that kernel's sums at
+    1,250 rows differ from those at 2,500 (1,056-wide CIFAR layers); the
+    row-major product's do not (PERF.md, scale-out), so a row's gradient does not
+    depend on how many rows a data-parallel rank holds. A's gradient is
+    autograd's, ``lat^T @ grad``."""
+
+    @staticmethod
+    def forward(ctx, lat: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(lat, A)
+        return lat @ A
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad: torch.Tensor):
+        lat, A = ctx.saved_tensors
+        d_lat = grad @ A.t().contiguous() if ctx.needs_input_grad[0] else None
+        d_A = lat.t() @ grad if ctx.needs_input_grad[1] else None
+        return d_lat, d_A
+
+
 def materialize_theta(h_w: torch.Tensor, A: Sequence[torch.Tensor],
                       cfg: ModalityConfig) -> torch.Tensor:
     """A-transform: (B, n_inr_params) latents -> (B, n_inr_params) packed
     per-layer [b, W], the kernel's parameter layout."""
     return torch.cat(
-        [slice_layer(h_w, li, cfg.cum_param_sizes) @ A[li] for li in range(cfg.n_layers)],
+        [ATransform.apply(slice_layer(h_w, li, cfg.cum_param_sizes), A[li])
+         for li in range(cfg.n_layers)],
         dim=-1,
     )
 

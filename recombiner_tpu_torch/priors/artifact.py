@@ -8,8 +8,10 @@ The grouping weights are computed on the host from the posteriors moved
 there: the scales through the port's ``scale_transform`` on the CPU, then
 numpy, wherever the state was trained, so that a probe
 (``trainer.realized_bitrate``) and the built artifact count the same
-groups. torch's softplus and the JAX package's differ by an ulp on a few
-percent of f32 inputs; a level whose greedy packing sits within about 1e-7
+groups. A data-parallel state is gathered first (every rank must call):
+the artifact and every probe see all rows, on every rank. torch's
+softplus and the JAX package's differ by an ulp on a few percent of f32
+inputs; a level whose greedy packing sits within about 1e-7
 of a 16-bit boundary could split differently in the two packages
 (``ROADMAP.md``, queue 3).
 """
@@ -41,7 +43,9 @@ def _level_raw_mats(state: PriorState, priors: Priors,
                     cfg: ModalityConfig) -> Dict[str, LevelMats]:
     """Level 1 ("w") is the INR weight latents and the flattened LPEs,
     grouped jointly (main_prior_training.py:198-212); a patch config adds
-    h and hh."""
+    h and hh. The rows of every rank (a collective when they are sharded:
+    every rank builds from the same gathered state)."""
+    state = state.gathered()
     R = state.w.loc.shape[0]
     out = {"w": (
         np.concatenate([_np(state.w.loc), _np(state.lpe.loc).reshape(R, -1)], -1),

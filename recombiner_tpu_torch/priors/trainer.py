@@ -55,6 +55,17 @@ from recombiner_tpu_torch.models.inr import init_linear_transform
 from recombiner_tpu_torch.models.mappings import lpe_to_pe, sample_hierarchical_latents
 from recombiner_tpu_torch.models.upsample import init_upsample_params
 from recombiner_tpu_torch.ops.fused_inr import inr_forward_fused
+from recombiner_tpu_torch.parallel.mesh import (
+    Partition,
+    PixelPartition,
+    gather_rows,
+    is_sharded,
+    local_rows,
+    ordered_sum,
+    ordered_sum_all,
+    sum_all_over,
+    sum_over,
+)
 
 UPPER = ("h", "hh")
 
@@ -75,6 +86,9 @@ class PriorState:
     hh: Optional[Gaussian]  # (R / prod(level3_patch_nums), n_inr_params)
     A: Tuple[torch.Tensor, ...]  # per-layer linear transforms
     up: Dict[str, Dict[str, torch.Tensor]]  # {conv{i}: {w (O, I, *k), b}}
+    # how the posterior rows lie over the ranks (None: one process, all rows);
+    # the mappings are whole on every rank
+    part: Optional[Partition] = None
 
     def posteriors(self) -> List[Gaussian]:
         return [g for g in (self.w, self.lpe, self.h, self.hh) if g is not None]
@@ -102,10 +116,26 @@ class PriorState:
             up = {c: {k: next(it) for k in sorted(self.up[c])} for c in sorted(self.up)}
         if next(it, None) is not None:
             raise ValueError("more leaves than the state holds")
-        return PriorState(A=A, up=up, **post)
+        return PriorState(A=A, up=up, part=self.part, **post)
 
     def to(self, device) -> "PriorState":
         return self.with_leaves([t.to(device) for t in self.leaves()])
+
+    def _map_posteriors(self, fn, part) -> "PriorState":
+        post = {n: None if getattr(self, n) is None
+                else Gaussian(fn(getattr(self, n).loc), fn(getattr(self, n).log_scale))
+                for n in ("w", "lpe", *UPPER)}
+        return PriorState(A=self.A, up=self.up, part=part, **post)
+
+    def shard_rows(self, part: Partition) -> "PriorState":
+        """This rank's block of a whole state's posterior rows, recorded as
+        laid out by ``part``."""
+        return self._map_posteriors(lambda t: local_rows(t, part), part)
+
+    def gathered(self) -> "PriorState":
+        """Every rank's posterior rows, on every rank (a collective when the
+        rows are sharded): the single-device state."""
+        return self._map_posteriors(lambda t: gather_rows(t, self.part), None)
 
 
 @dataclasses.dataclass
@@ -130,12 +160,14 @@ class Priors:
 
 def init_prior_state(cfg: ModalityConfig, train_size: int,
                      generator: Optional[torch.Generator] = None,
-                     device: DeviceLike = None) -> PriorState:
+                     device: DeviceLike = None, part: Optional[Partition] = None) -> PriorState:
     """SIREN-style posterior init (``trainer.py:61-87``): loc U(-w_std, w_std)
     with w_std = sqrt(c / hidden[-1]) / w0, LPE loc 0.1 N(0, 1), raw scales
     ``init_log_scale``; the A matrices and the conv stack as their init
     functions draw them. The same distributions as the JAX package's, other
-    numbers for the same seed."""
+    numbers for the same seed. ``train_size`` counts every rank's rows:
+    the whole state is drawn on every rank and this rank keeps its block of
+    ``part``, so a row starts alike at any world size."""
     dev = resolve_device(device)
     w_std = float(np.sqrt(cfg.c / cfg.hidden_dims[-1]) / cfg.w0)
     ils = cfg.init_log_scale
@@ -155,7 +187,8 @@ def init_prior_state(cfg: ModalityConfig, train_size: int,
     A = tuple(init_linear_transform(cfg.net_dims, generator, dev))
     up = init_upsample_params(cfg.data_dim, cfg.latent_dim, cfg.upsample_hidden,
                               cfg.upsample_out, generator, dev)
-    return PriorState(w=w, lpe=lpe, A=A, up=up, **upper)
+    state = PriorState(w=w, lpe=lpe, A=A, up=up, **upper)
+    return state if part is None else state.shard_rows(part)
 
 
 def init_priors(cfg: ModalityConfig, device: DeviceLike = None) -> Priors:
@@ -174,14 +207,19 @@ def init_priors(cfg: ModalityConfig, device: DeviceLike = None) -> Priors:
 def draw_noise(state: PriorState, cfg: ModalityConfig, sample_size: int,
                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
     """One forward's noise from ``generator`` in the JAX package's order
-    (LPE, w, h, hh), or zero without one (the posterior means)."""
-    R, S = state.w.loc.shape[0], sample_size
+    (LPE, w, h, hh), or zero without one (the posterior means). The noise
+    of every rank's rows is drawn and this rank keeps its own
+    (``state.part``), so row r sees the same noise at any world size, as
+    ``jax.random`` over a sharded array does."""
+    part, S = state.part, sample_size
+    R = state.w.loc.shape[0]
     shapes = [(R, S, *cfg.lpe_spatial, cfg.latent_dim), (R, S, cfg.n_inr_params)]
     shapes += [(g.loc.shape[0], S, g.loc.shape[1]) for g in (state.h, state.hh) if g is not None]
     dev = state.w.loc.device
     if generator is None:
         return [torch.zeros(s, device=dev) for s in shapes]
-    return [torch.randn(s, generator=generator, device=dev) for s in shapes]
+    return [local_rows(torch.randn((part.global_rows(s[0]) if part else s[0], *s[1:]),
+                                   generator=generator, device=dev), part) for s in shapes]
 
 
 def forward(state: PriorState, X: torch.Tensor, cfg: ModalityConfig, sample_size: int = 1,
@@ -189,8 +227,9 @@ def forward(state: PriorState, X: torch.Tensor, cfg: ModalityConfig, sample_size
             noise: Optional[Noise] = None) -> torch.Tensor:
     """Variational forward (``trainer.py:106-132``): sample the posteriors,
     upsample the LPEs, render the INR through the SIREN kernels.
-    X (R, P, fourier_dim) -> (R, S, P, out_dim). The noise is ``noise`` when
-    given, else drawn from ``generator`` (``draw_noise``)."""
+    X (R, P, fourier_dim) -> (R, S, P, out_dim), for this rank's rows (and,
+    on a 2-D mesh, its pixels). The noise is ``noise`` (this rank's rows)
+    when given, else drawn from ``generator`` (``draw_noise``)."""
     S = sample_size
     dev = state.w.loc.device
     if noise is None:
@@ -198,6 +237,9 @@ def forward(state: PriorState, X: torch.Tensor, cfg: ModalityConfig, sample_size
     eps = [torch.as_tensor(n, dtype=torch.float32, device=dev) for n in noise]
     lpe = state.lpe.loc[:, None] + state.lpe.scale[:, None] * eps[0]
     pe = lpe_to_pe(state.up, lpe, cfg)  # (R, S, P, pe_dim)
+    if isinstance(state.part, PixelPartition):
+        # every pixel rank upsamples the whole canvas and keeps its pixels
+        pe = pe[:, :, state.part.pixel_block(pe.shape[2])]
     x = torch.cat([X[:, None].expand(*pe.shape[:3], X.shape[-1]), pe], -1)
     upper = {}
     if cfg.patch:
@@ -208,7 +250,7 @@ def forward(state: PriorState, X: torch.Tensor, cfg: ModalityConfig, sample_size
 
 def total_kl(state: PriorState, priors: Priors) -> torch.Tensor:
     """The KL of every posterior row of every level against its prior, summed
-    (``trainer.py:135-142``), in nats."""
+    (``trainer.py:135-142``), in nats: over the rows this rank holds."""
     levels = [(getattr(state, n), getattr(priors, n)) for n in ("w", "lpe", *UPPER)]
     return sum(kl_gaussian(q.loc, q.scale, p.loc, p.scale).sum() for q, p in levels
                if q is not None)
@@ -220,9 +262,11 @@ class EpochMetrics(NamedTuple):
 
 
 def _epoch_noise(source: NoiseSource, state: PriorState, cfg: ModalityConfig) -> Noise:
+    """An epoch's noise for this rank's rows: drawn (``draw_noise``), or the
+    rows of the global noise a callable source returns."""
     if isinstance(source, torch.Generator):
         return draw_noise(state, cfg, 1, source)
-    return source()
+    return [local_rows(torch.as_tensor(n), state.part) for n in source()]
 
 
 def sgd_epochs(state: PriorState, X: torch.Tensor, Y: torch.Tensor, priors: Priors,
@@ -233,9 +277,23 @@ def sgd_epochs(state: PriorState, X: torch.Tensor, Y: torch.Tensor, priors: Prio
     (the reference re-creates it per EM iteration). With ``train_mappings``
     off only the posteriors move. Returns the new state (the input's tensors
     are not changed) and the last epoch's (mse, KL). Runs at the ambient
-    precision, on deterministic cuDNN algorithms."""
+    precision, on deterministic cuDNN algorithms.
+
+    Data-parallel (``state.part`` sharded; X and Y this rank's rows): the
+    mse is a mean over every row, so ``mse * R`` of a rank's rows alone is
+    exactly its rows' term, and per-row gradients need no collective. The
+    gradients of the shared A and conv weights are summed over the ranks
+    in rank order (``ordered_sum_all``), so every rank takes the same Adam
+    step on them. On a 2-D mesh (``PixelPartition``) a rank holds a pixel
+    slice of its rows: the mse term is weighted by its share of the
+    pixels, the KL counted on pixel rank 0, the per-row gradients summed
+    over the pixel group and the shared ones over every rank. The metrics
+    are global, the same on every rank."""
     beta = float(np.float32(kl_beta))
+    part = state.part
+    pix = part if isinstance(part, PixelPartition) else None
     leaves = [t.detach().clone().requires_grad_() for t in state.leaves(train_mappings)]
+    n_post = 2 * len(state.posteriors())
     opt = adam_init(leaves)
     mse = kl = None
     with precision(), deterministic_convs():
@@ -246,21 +304,46 @@ def sgd_epochs(state: PriorState, X: torch.Tensor, Y: torch.Tensor, priors: Prio
             kl = total_kl(s, priors)
             # the reference's loss: mean mse times the rows plus beta KL
             # (prior_model.py:237-247)
-            loss = mse * Y.shape[0] + beta * kl
-            grads = torch.autograd.grad(loss, leaves)
+            if pix is None:
+                loss = mse * Y.shape[0] + beta * kl
+            else:
+                loss = (mse * (Y.shape[0] / pix.grid.sp)
+                        + beta * kl * float(pix.grid.pixels.rank == 0))
+            grads = list(torch.autograd.grad(loss, leaves))
+            if pix is not None:
+                grads[:n_post] = sum_all_over(grads[:n_post], pix.grid.pixels)
+                grads[n_post:] = sum_all_over(grads[n_post:], pix.grid.world)
+            elif is_sharded(part):
+                grads[n_post:] = ordered_sum_all(grads[n_post:], part)
             opt = adam_step(leaves, grads, opt, lr)
     out = state.with_leaves([t.detach() for t in leaves], train_mappings)
-    return out, EpochMetrics(mse.detach(), kl.detach())
+    mse, kl = mse.detach(), kl.detach()
+    if pix is not None:
+        mse = sum_over(mse, pix.grid.world) / pix.grid.world.world
+        kl = ordered_sum(kl, part)
+    elif is_sharded(part):
+        mse = ordered_sum(mse, part) / part.mesh.world
+        kl = ordered_sum(kl, part)
+    return out, EpochMetrics(mse, kl)
 
 
 def m_step(state: PriorState) -> Priors:
     """Closed-form prior update (``trainer.py:314-331``): moment-match the
-    row-wise posterior mixture, var with ddof 1."""
+    row-wise posterior mixture, var with ddof 1. Over sharded rows: the
+    global mean first, then the global sum of squared deviations over the
+    global count less one, each summed over the ranks in rank order."""
+    part = state.part
 
     def match(g: Gaussian) -> NaturalGaussian:
-        loc = g.loc.mean(0)
-        var = (scale_transform(g.log_scale) ** 2).mean(0) + torch.var(g.loc, 0, correction=1)
-        return NaturalGaussian(loc=loc, scale=torch.sqrt(var))
+        if not is_sharded(part):
+            loc = g.loc.mean(0)
+            var = (scale_transform(g.log_scale) ** 2).mean(0) + torch.var(g.loc, 0, correction=1)
+            return NaturalGaussian(loc=loc, scale=torch.sqrt(var))
+        n = part.global_rows(g.loc.shape[0])
+        loc = ordered_sum(g.loc.sum(0), part) / n
+        ssd, sq = ordered_sum_all([((g.loc - loc) ** 2).sum(0),
+                                   (scale_transform(g.log_scale) ** 2).sum(0)], part)
+        return NaturalGaussian(loc=loc, scale=torch.sqrt(sq / n + ssd / (n - 1)))
 
     with torch.no_grad():
         return Priors(**{n: None if getattr(state, n) is None else match(getattr(state, n))
@@ -287,10 +370,11 @@ def em_iters(state: PriorState, X: torch.Tensor, Y: torch.Tensor, priors: Priors
              cfg: ModalityConfig, n_iters: int, n_epochs: int, lr: float = 2e-4):
     """``n_iters`` EM iterations (``trainer.py:203-278``): each an E-step
     (``sgd_epochs``), beta's f32 update against [budget_min, budget_max]
-    (``beta_update``) and the M-step. Returns (state, priors, kl_beta, history)
-    with history = (mse, KL bits per row, kl_beta) f32 arrays of length
-    ``n_iters``; beta and the budgets travel as f32, as in the JAX package."""
-    R = X.shape[0]
+    (``beta_update``, from the global KL and row count) and the M-step.
+    Returns (state, priors, kl_beta, history) with history = (mse, KL bits
+    per row, kl_beta) f32 arrays of length ``n_iters``; beta and the
+    budgets travel as f32, as in the JAX package."""
+    R = state.part.global_rows(X.shape[0]) if state.part is not None else X.shape[0]
     beta = np.float32(kl_beta)
     lo, hi = np.float32(budget_min), np.float32(budget_max)
     hist = ([], [], [])
@@ -396,7 +480,8 @@ def em_train(source: NoiseSource, cfg: ModalityConfig, X: torch.Tensor, Y: torch
              kl_beta: float = 1e-8, rate_control: bool = True, rate_tolerance: float = 0.015,
              probe_every: int = 10, controller: Optional[dict] = None, em_iter_offset: int = 0,
              schedule_total: Optional[int] = None, rate_select: bool = True,
-             em_stop: Optional[Tuple[int, float, int]] = None) -> EMResult:
+             em_stop: Optional[Tuple[int, float, int]] = None,
+             part: Optional[Partition] = None) -> EMResult:
     """The EM loop with the closed-loop rate controller
     (``trainer.py:417-703``; its docstring gives the reasons for each rule).
 
@@ -411,14 +496,21 @@ def em_train(source: NoiseSource, cfg: ModalityConfig, X: torch.Tensor, Y: torch
     state nearest the target), the ``em_stop`` plateau test, then
     ``log_fn(em_iter, record, state, priors)`` and
     ``checkpoint_fn(em_iter, state, priors, kl_beta, controller)``.
-    ``controller``, ``em_iter_offset`` and ``schedule_total`` resume a run."""
-    train_size = X.shape[0]
+    ``controller``, ``em_iter_offset`` and ``schedule_total`` resume a run.
+
+    Data-parallel: X and Y are this rank's rows of ``part`` (a given
+    ``state`` carries its own), the initial state is drawn whole and sliced,
+    and every decision (beta, the window, the probes on the gathered state,
+    the stop) reads global values, so every rank takes the same branch."""
+    if state is not None:
+        part = state.part
+    train_size = part.global_rows(X.shape[0]) if part is not None else X.shape[0]
     base_min, base_max = cfg.bits_budget(max_bitrate)
     if state is None:
         if not isinstance(source, torch.Generator):
             raise ValueError("em_train draws the initial state from a torch.Generator; "
                              "pass one, or pass state")
-        state = init_prior_state(cfg, train_size, source, X.device)
+        state = init_prior_state(cfg, train_size, source, X.device, part)
     if priors is None:
         priors = init_priors(cfg, X.device)
 

@@ -14,6 +14,7 @@ it to the port as numpy. Tolerances (each test says which it uses):
 """
 
 import dataclasses
+import functools
 import os
 
 import jax
@@ -43,6 +44,7 @@ from recombiner_tpu_torch.config import get_config
 from recombiner_tpu_torch.io import bitstream, checkpoint, convert
 from recombiner_tpu_torch.metrics import metric
 from recombiner_tpu_torch.models.gaussian import Gaussian, kl_gaussian
+from recombiner_tpu_torch.parallel import launch
 from recombiner_tpu_torch.priors.grouping import compute_grouping
 from recombiner_tpu_torch.utils import platform
 
@@ -311,10 +313,12 @@ def test_small_copies_match_jax():
         np.testing.assert_array_equal(metric(a, b, name), jax_metric(a, b, name))
 
 
-def test_cli_compress_on_png_dir(tmp_path):
+def test_cli_compress_on_png_dir(tmp_path, monkeypatch):
     """The port's compress CLI with --device cpu on a directory of PNGs (one
     test batch: one image for TINY), then its decompress CLI on the
-    bitstream it wrote."""
+    bitstream it wrote; with ``--n_devices 2`` two ranks encode the one
+    image (replicated: it does not divide) and rank 0 writes the same
+    bitstream."""
     from PIL import Image
 
     jart, art = _artifacts()
@@ -347,9 +351,16 @@ def test_cli_compress_on_png_dir(tmp_path):
                                "--seed", "1", "--remat"])
     np.testing.assert_array_equal(again.indices["w"], res.indices["w"])
     np.testing.assert_array_equal(again.reconstruction, res.reconstruction)
-    with pytest.raises(NotImplementedError, match="n_devices 2"):
-        compress_cli.main(["--test_dir", str(images), "--test_idx", "0", "--prior_path", prior,
-                           "--save_dir", str(out), "--n_devices", "2"])
+    monkeypatch.setattr(launch, "spawn", functools.partial(launch.spawn, timeout_s=300))
+    two = tmp_path / "two"
+    assert compress_cli.main(["--test_dir", str(images), "--test_idx", "0", "--prior_path",
+                              prior, "--save_dir", str(two), "--device", "cpu", "--n_epochs",
+                              "5", "--finetune_epochs", "1", "--sample_size", "2", "--seed", "1",
+                              "--n_devices", "2"]) is None
+    assert sorted(os.listdir(two)) == names
+    with open(two / "bitstream_test_id_0.rctb", "rb") as f, \
+            open(out / "bitstream_test_id_0.rctb", "rb") as g:
+        assert f.read() == g.read()
 
 
 def test_predict_sample_form_matches_jax(setup):
@@ -449,27 +460,28 @@ _CLI_BASE = ["--test_dir", "d", "--test_idx", "0", "--prior_path", "p.npz", "--s
 def test_cli_takes_the_jax_clis_reference_invocations(extra):
     """The JAX CLI's default invocation and its --no-* forms parse in both
     packages with equal values for every shared flag, and the port runs
-    them (no flag names an unported value)."""
+    them (the device count they ask for is one the port starts)."""
     jargs = vars(jax_compress_cli.parse_args(_CLI_BASE + extra))
     args = vars(compress_cli.parse_args(_CLI_BASE + extra))
     assert set(jargs) == set(args)
     assert jargs == args
-    assert compress_cli.unported(compress_cli.parse_args(_CLI_BASE + extra)) == []
+    assert launch.requested_world(args["n_devices"], "cpu") >= 1
 
 
 @pytest.mark.parametrize("extra,queue", [
     (["--n_devices", "2"], "scale-out"),
 ])
 def test_cli_raises_on_each_value_the_port_does_not_run(extra, queue):
-    """Each value that would change what the port runs raises before any
-    work, naming its flag and the queue that ports it; the JAX CLI parses
-    the same invocation. Since the precision slice, only ``--n_devices``
-    above 1 is left (``test_torch_precision.py`` runs every
-    ``--precision``)."""
+    """The JAX CLI parses the invocation, and since the scale-out slice the
+    port runs it (``test_cli_compress_on_png_dir`` runs ``--n_devices 2
+    --device cpu``); only a count above the visible devices raises, before
+    any work, as the JAX package's ``make_mesh`` does."""
     jax_compress_cli.parse_args(_CLI_BASE + extra)
-    with pytest.raises(NotImplementedError, match=extra[0]) as e:
-        compress_cli.main(_CLI_BASE + extra)
-    assert queue in str(e.value)
+    args = compress_cli.parse_args(_CLI_BASE + extra)
+    assert launch.requested_world(args.n_devices, "cpu") == 2, queue
+    too_many = str(launch.visible_devices("cpu") + 1)
+    with pytest.raises(ValueError, match=f"--n_devices {too_many} requested but only"):
+        compress_cli.main(_CLI_BASE + ["--n_devices", too_many, "--device", "cpu"])
 
 
 @pytest.fixture(scope="module")
@@ -500,7 +512,7 @@ def png_dir(tmp_path_factory):
 ])
 def test_cli_runs_each_value_this_slice_ports(extra, png_dir, tmp_path, setup):
     """Each flag value that the adaptive/quality/resume slice ports parses
-    alike in both packages, names nothing unported, and runs (a few epochs
+    alike in both packages and runs (a few epochs
     on TINY); ``--ft_lr`` and ``--ft_lr_schedule`` without the fused path
     raise the JAX package's ValueError, as its ``compress`` does."""
     extra = [a.format(root=tmp_path) for a in extra]
@@ -509,7 +521,6 @@ def test_cli_runs_each_value_this_slice_ports(extra, png_dir, tmp_path, setup):
             "--n_epochs", "4", "--finetune_epochs", "2", "--sample_size", "2"]
     assert vars(jax_compress_cli.parse_args(base + extra)) == vars(
         compress_cli.parse_args(base + extra))
-    assert compress_cli.unported(compress_cli.parse_args(base + extra)) == []
     if extra[0] in ("--ft_lr", "--ft_lr_schedule"):
         with pytest.raises(ValueError, match="require the fused coding path"):
             compress_cli.main(base + extra)

@@ -12,15 +12,16 @@ import recombiner_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "flax", "optax", "tqdm", "recombiner_tpu")
-# the encode, modalities, prior-training and precision slices' modules, named so that the
-# check above cannot pass without them
+# the encode, modalities, prior-training, precision and scale-out slices' modules, named so
+# that the check above cannot pass without them
 ENCODE_MODULES = ("coding.encoder", "coding.progressive", "coding.gumbel", "cli.compress",
                   "data.pipeline", "data.image", "data.load_data", "metrics", "io.atomic",
                   "io.encode_state", "io.checkpoint", "models.upsample", "models.mappings",
                   "utils.memory", "data.audio", "data.video", "data.protein", "data.synthetic",
                   "data.export", "cli.decompress", "io.convert", "priors.trainer",
                   "priors.artifact", "io.train_state", "cli.train", "cli.rd_sweep",
-                  "utils.platform", "utils.timing", "utils.tracing", "ops.blocked_inr")
+                  "utils.platform", "utils.timing", "utils.tracing", "ops.blocked_inr",
+                  "parallel.launch", "parallel.mesh", "parallel.tp")
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|tqdm|recombiner_tpu)\b", re.M)
 
 

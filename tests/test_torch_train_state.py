@@ -8,6 +8,7 @@ packages' softplus differ by an ulp on a few percent of the f32 scales);
 everything else in an artifact or a train state equal.
 """
 
+import functools
 import json
 import os
 import shutil
@@ -33,6 +34,7 @@ from recombiner_tpu_torch.data.export import write_png
 from recombiner_tpu_torch.data.synthetic import synthetic_dataset
 from recombiner_tpu_torch.io import bitstream, checkpoint, convert, train_state
 from recombiner_tpu_torch.io.atomic import SnapshotRejected
+from recombiner_tpu_torch.parallel import launch
 from recombiner_tpu_torch.priors import trainer as tr
 from recombiner_tpu_torch.priors.artifact import build_prior_artifact
 
@@ -210,11 +212,12 @@ def png_dirs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", ["tiny", "tiny_patch"])
-def test_cli_train_end_to_end(png_dirs, tmp_path, name, capsys):
+def test_cli_train_end_to_end(png_dirs, tmp_path, name, capsys, monkeypatch):
     """``cli.train --device cpu`` on a directory of PNGs: 2 of the 3 images
     (the seeded subset), the JAX CLI's artifact and history file names and
     log lines, an artifact that the JAX package loads and whose config is
-    the dataset's; ``--n_devices 2`` is refused naming its queue."""
+    the dataset's; with ``--n_devices 2`` two ranks train a datapoint each
+    (queue 1, item 7) and rank 0 writes the same files."""
     out = tmp_path / "out"
     argv = ["--train_dir", str(png_dirs / name), "--dataset", name, "--max_bitrate", "2.0",
             "--saving_dir", str(out), "--device", "cpu", "--n_em_iters", "2",
@@ -232,8 +235,15 @@ def test_cli_train_end_to_end(png_dirs, tmp_path, name, capsys):
     assert jart.config.name == name and jart.codebook_seed == 42
     art = checkpoint.load_prior_artifact(str(out / f"PRIOR_{stem}.npz"))
     assert art.w.grouping.n_params == get_config(name).n_coded_params
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        train_cli.main(argv + ["--n_devices", "2"])
+    monkeypatch.setattr(launch, "spawn", functools.partial(launch.spawn, timeout_s=300))
+    two = tmp_path / "two"
+    argv2 = [str(two) if a == str(out) else a for a in argv]
+    assert train_cli.main(argv2 + ["--train_size", str(rows), "--n_devices", "2"]) is None
+    assert sorted(os.listdir(two)) == sorted(os.listdir(out))
+    jart2 = jck.load_prior_artifact(str(two / f"PRIOR_{stem}.npz"))
+    assert jart2.config.name == name and len(jart2.A) == len(jart.A)
+    with open(two / f"LOSS_{stem}.json") as f:
+        assert len(json.load(f)) == 2
 
 
 def _sweep_argv(name, tmp_path, *extra):
@@ -326,8 +336,16 @@ def test_rd_sweep_resumes_training_after_a_crash(tmp_path, monkeypatch):
     _artifacts_equal(arts[0], arts[1])
 
 
-def test_rd_sweep_refuses_what_is_not_ported(tmp_path):
-    """Only ``--n_devices`` above 1 is left to refuse; every ``--precision``
-    runs (``test_torch_precision.py::test_clis_pass_the_mode_on``)."""
-    with pytest.raises(NotImplementedError, match="n_devices"):
-        rd_sweep.main(_sweep_argv("tiny", tmp_path, "--n_devices", "2"))
+def test_rd_sweep_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Nothing is left to refuse: every ``--precision`` runs
+    (``test_torch_precision.py::test_clis_pass_the_mode_on``) and so does
+    ``--n_devices 2``: the two training datapoints sharded, the one test
+    datapoint on both ranks, rank 0 writing the curve. A count above the
+    visible devices raises."""
+    monkeypatch.setattr(launch, "spawn", functools.partial(launch.spawn, timeout_s=300))
+    assert rd_sweep.main(_sweep_argv("tiny", tmp_path, "--n_devices", "2")) is None
+    with open(tmp_path / "rd.json") as f:
+        (p,) = json.load(f)["points"]
+    assert p["n_rows"] == 1 and np.isfinite(p["distortion_mean"])
+    with pytest.raises(ValueError, match="requested but only"):
+        rd_sweep.main(_sweep_argv("tiny", tmp_path, "--n_devices", "100000"))
