@@ -7,8 +7,9 @@ geometry: decode, encode, remat, and a crash and a resume; then audio,
 video and protein at theirs (the 1-D and 3-D conv stacks): decode,
 encode and the media export, and for video remat and a resume; then prior
 training: cli.train and cli.rd_sweep on CIFAR at R = 2,000, and Kodak's
-three levels; then scale-out: the CLIs at world size 1 on NCCL, and two
-ranks on the one card over gloo.
+three levels; then scale-out: the CLIs at world size 1 on NCCL, two ranks
+on the one card over gloo, and one Kodak image's patch rows split over two
+ranks with the conv canvas's halo exchanged.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -164,7 +165,22 @@ caught and passed over but the crashes phase 12 simulates):
    the PSNR within 0.3 dB in both modes; each rank's train_epoch_s,
    epoch_s, time in collectives and peak memory (one shared card: not a
    scale-out speed). ``scripts/torch_scaleout.py`` runs the same rank
-   function over NCCL, one card a rank.
+   function over NCCL, one card a rank;
+27. Kodak over 2 ranks on one card: two ranks spawned over gloo run
+   ``patch_rank``: one Kodak image (96 / 6 / 1 rows, P = 4,096, S = 5)
+   split 48 patch rows a rank (h split with them, hh whole on both), the
+   conv canvas's halo of one latent row exchanged; the halo-split
+   ``lpe_to_pe`` and its LPE gradient (exact) within HALO_OF_MAX of the
+   largest entry of the whole canvas's; then the Kodak encode (CUT_*)
+   under --precision highest and at the ambient: both ranks return the
+   same encode, its indices at least 1 - 2 (1 - a) equal to world size 1's
+   in this process (a: world size 1 against its own encode with its
+   initial w means nudged by 1e-7) and the PSNR within 0.3 dB, rank 0's
+   bitstream decoded in one process within DECODE_TOL, launches held to
+   the epochs on both ranks; each rank's epoch_s, time in the halo, the
+   sums and the gathers an epoch, peak memory and launches (one shared
+   card: not a scale-out speed). ``scripts/torch_scaleout.py --parts
+   kodak`` runs the same rank function over NCCL, one card a rank.
 
 Precision: everything a user runs (encodes, epochs, training) runs at the
 ambient TF32, as the CLIs' default does; A* scoring and decode are exact in
@@ -179,7 +195,7 @@ CUT_* for Kodak, audio, video and protein (full widths and geometry,
 every group of every level coded); TRAIN_* for prior training (the
 reference's 550 EM iterations of 200 / 100 epochs cut to 4 of 20 / 10 at
 CIFAR's full widths and R = 2,000); SCALE_EM for the world-2 training (2
-EM iterations of 3 epochs).
+EM iterations of 3 epochs); the Kodak world-2 phase at the Kodak cut.
 
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -2107,6 +2123,276 @@ def scaleout_world2(seed: int, card: str, tmp_root: str, train_dir: str) -> dict
             "spawn_s": spawn_s}
 
 
+# ------------------------------------------------- Kodak's patch rows over ranks
+
+# the kinds of collective a rank's epoch makes on a split Kodak image: the
+# conv canvas's halo (forward and backward), the rank-ordered sums (the
+# gradient of a level every rank holds whole), the gathers (posteriors for
+# the annealing and the coding steps, indices, scalars)
+COLLECTIVE_KINDS = ("halo", "sums", "gathers")
+# the halo-split lpe_to_pe check on the card: within this share of the
+# largest entry of the whole canvas's PEs and LPE gradient (exact f32), the
+# CPU tests' tolerance (tests/test_torch_patch_parallel.py)
+HALO_OF_MAX = 1e-5
+
+
+def _collective_kind(frame) -> str:
+    if frame.f_globals.get("__name__", "").endswith("parallel.halo"):
+        return "halo"
+    return "sums" if frame.f_code.co_name.startswith("sum") else "gathers"
+
+
+def halo_inputs(cfg, R: int, seed: int):
+    """An LPE (R, 1, *lpe_spatial, latent) and a cotangent of its PEs on the
+    card, from a generator seeded ``seed`` (the same on every rank)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lpe = torch.randn(R, 1, *cfg.lpe_spatial, cfg.latent_dim, generator=g, device="cuda")
+    dy = torch.randn(R, 1, cfg.n_pixels, cfg.upsample_out, generator=g, device="cuda")
+    return lpe, dy
+
+
+def halo_lpe_to_pe(up, cfg, R: int, seed: int, part):
+    """``lpe_to_pe`` and its LPE gradient at exact f32 on deterministic cuDNN:
+    on this rank's slab of ``halo_inputs`` (``part``), gathered, or with
+    ``part`` None on the whole canvas."""
+    from recombiner_tpu_torch.parallel import mesh as mesh_mod
+
+    lpe, dy = halo_inputs(cfg, R, seed)
+    with exact_f32(), deterministic_convs():
+        lpe = mesh_mod.shard_rows(lpe, part).requires_grad_()
+        pe = mappings.lpe_to_pe(up, lpe, cfg, part)
+        (g,) = torch.autograd.grad(pe, lpe, mesh_mod.shard_rows(dy, part))
+    return (mesh_mod.gather_rows(pe.detach(), part).cpu(), mesh_mod.gather_rows(g, part).cpu())
+
+
+def patch_rank(rank: int, inp: str, out_dir: str, modes: dict) -> None:
+    """One rank of a Kodak encode whose one image's patch rows are split over
+    the ranks (``partition(mesh, 1, KODAK)``: at 2 ranks 48 rows a rank,
+    h split, hh whole; at 4, 24 rows a rank, h and hh whole), on its own
+    card or a share of one. First the halo-split ``lpe_to_pe`` and its
+    gradient (``halo_lpe_to_pe``); then for each precision mode of
+    ``modes`` (name: the ``platform.ambient`` argument)
+    ``progressive.compress`` at the Kodak encode's cut (CUT_PHASE1_EPOCHS,
+    1-epoch finetunes) with its launches and the time in each kind of
+    collective (``COLLECTIVE_KINDS``, timed between synchronisations around
+    each ``mesh.all_gather``), and SCALE_TIMED warm epochs twice: as a user
+    runs them (``epoch_s``), then with each collective so timed
+    (``epoch_s_timed`` and each kind's time an epoch: the synchronisations
+    stall the host, and a rank's wait for the slowest one counts in the
+    collective); and, on a card of its own, 5 epochs under the profiler
+    (device time an epoch, of it NCCL's kernels, and the idle share). Rank 0
+    writes each mode's bitstream. The seed comes from ``inp``; the results
+    go to ``out_dir/patch_{rank}.pt``."""
+    from recombiner_tpu_torch.parallel import mesh as mesh_mod
+
+    seed = torch.load(inp, weights_only=False)["seed"]
+    cfg, S = KODAK, SAMPLE_SIZE
+    mesh = mesh_mod.make_mesh()
+    coll = {k: [0.0, 0] for k in COLLECTIVE_KINDS}
+    real = mesh_mod.all_gather
+
+    def timed(t, m):
+        kind = _collective_kind(sys._getframe(1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = real(t, m)
+        torch.cuda.synchronize()
+        coll[kind][0] += time.perf_counter() - t0
+        coll[kind][1] += 1
+        return got
+
+    def reset():
+        for v in coll.values():
+            v[:] = [0.0, 0]
+
+    mesh_mod.all_gather = timed
+    art = make_artifact(cfg, seed)
+    X_np, Y_np = points_from_data(kodak_data(seed), cfg)
+    R = X_np.shape[0]
+    codec, state0 = init_codec(art, R)
+    part = mesh_mod.partition(mesh, 1, cfg)
+    X = mesh_mod.shard_rows(torch.from_numpy(X_np).cuda(), part)
+    Y = mesh_mod.shard_rows(torch.from_numpy(Y_np).cuda(), part)
+    st = mesh_mod.shard_rows(state0, part)
+    out = {"rank": rank, "device": torch.cuda.current_device(), "card": card_line(),
+           "sharded": part.sharded, "reason": part.reason, "rows": X.shape[0]}
+    out["pe"], out["grad"] = halo_lpe_to_pe(codec.up, cfg, R, seed + 3, part)
+    torch.cuda.reset_peak_memory_stats()
+    finetunes = {n: CUT_FINETUNE_EPOCHS for n in codec.level_names}
+    for mode, prec in modes.items():
+        with platform.ambient(prec):
+            zero_launches()
+            reset()
+            t0 = time.perf_counter()
+            r = progressive.compress(codec, st, X, Y, cfg,
+                                     torch.Generator(device="cuda").manual_seed(seed),
+                                     n_optimize_epochs=CUT_PHASE1_EPOCHS, sample_size=S,
+                                     finetune_overrides=finetunes)
+            torch.cuda.synchronize()
+            m = out[mode] = {"wall_s": time.perf_counter() - t0,
+                             "launches": dict(fused_inr.launches),
+                             "epochs": r.timings["phase1_epochs"] + r.timings["finetune_epochs"],
+                             "collective_s": {k: v[0] for k, v in coll.items()},
+                             "collectives": {k: v[1] for k, v in coll.items()},
+                             "indices": r.indices, "reconstruction": r.reconstruction,
+                             "psnr": float(np.mean(r.distortion))}
+            if rank == 0:
+                write_bitstream(os.path.join(out_dir, f"kodak_{mode}.rctb"), r.indices,
+                                config_name=cfg.name, codebook_seed=art.codebook_seed,
+                                codebook_kind=art.codebook_kind,
+                                bits_per_group=cfg.bits_per_group)
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            encoder.optimize(codec, st, X, Y, cfg, gen, n_epochs=2, sample_size=S)
+            for on in (False, True):  # epoch_s as a user runs it, then each collective timed
+                mesh_mod.all_gather = timed if on else real
+                torch.cuda.synchronize()
+                reset()
+                t0 = time.perf_counter()
+                encoder.optimize(codec, st, X, Y, cfg, gen, n_epochs=SCALE_TIMED, sample_size=S)
+                torch.cuda.synchronize()
+                m["epoch_s_timed" if on else "epoch_s"] = (time.perf_counter() - t0) / SCALE_TIMED
+            m["epoch_collective_ms"] = {k: 1e3 * v[0] / SCALE_TIMED for k, v in coll.items()}
+            m["device_ms"] = m["idle"] = m["nccl_ms"] = None
+            if mesh.world <= torch.cuda.device_count():  # a card of its own: profile it
+                mesh_mod.all_gather = real
+                busy_us, wall_us, by_kernel = device_time_by_kernel(
+                    lambda: encoder.optimize(codec, st, X, Y, cfg, gen, n_epochs=1,
+                                             sample_size=S), 5)
+                mesh_mod.all_gather = timed
+                m["device_ms"], m["idle"] = busy_us / 5e3, 1 - busy_us / wall_us
+                m["nccl_ms"] = sum(us for k, us in by_kernel.items() if "nccl" in k.lower()) / 5e3
+            del r
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    torch.save(out, os.path.join(out_dir, f"patch_{rank}.pt"))
+
+
+def kodak_world1(seed: int, modes: dict) -> dict:
+    """World size 1 in this process: for each mode the Kodak encode of
+    ``patch_rank``, and the same with its initial w means nudged by 1e-7
+    (relative), to show how far rounding alone moves it. Returns (the
+    encodes, each mode's index agreement with its nudged run, the codec,
+    the artifact, X)."""
+    cfg = KODAK
+    art = make_artifact(cfg, seed)
+    X_np, Y_np = points_from_data(kodak_data(seed), cfg)
+    codec, state0 = init_codec(art, X_np.shape[0])
+    X, Y = torch.from_numpy(X_np).cuda(), torch.from_numpy(Y_np).cuda()
+    nudged = dataclasses.replace(state0, w=dataclasses.replace(state0.w, q=Gaussian(
+        state0.w.q.loc * (1 + 1e-7), state0.w.q.log_scale)))
+    finetunes = {n: CUT_FINETUNE_EPOCHS for n in codec.level_names}
+    one, nudge = {}, {}
+    for mode, prec in modes.items():
+        with platform.ambient(prec):
+            one[mode], again = (
+                progressive.compress(codec, s, X, Y, cfg,
+                                     torch.Generator(device="cuda").manual_seed(seed),
+                                     n_optimize_epochs=CUT_PHASE1_EPOCHS,
+                                     sample_size=SAMPLE_SIZE, finetune_overrides=finetunes)
+                for s in (state0, nudged))
+        nudge[mode] = index_agreement(again.indices, one[mode].indices)
+    return {"encode": one, "nudge": nudge, "codec": codec, "art": art, "X": X}
+
+
+def index_agreement(a: dict, b: dict) -> float:
+    """The share of equal indices over every level."""
+    x = np.concatenate([np.ravel(a[n]) for n in sorted(a)])
+    y = np.concatenate([np.ravel(b[n]) for n in sorted(b)])
+    return float(np.mean(x == y))
+
+
+def kodak_world2(seed: int, card: str, tmp_root: str) -> dict:
+    """SCALE_RANKS ranks on the one card over gloo, one Kodak image's 96
+    patch rows split 48 a rank (``patch_rank``), under --precision highest
+    and at the ambient (TF32), against world size 1 in this process
+    (``kodak_world1``): both ranks return the same encode; its indices at
+    least 1 - 2 (1 - a) equal to world size 1's, a world size 1's agreement
+    with its own nudged encode; the PSNR within 0.3 dB; rank 0's bitstream
+    decoded in one process within DECODE_TOL of the reconstruction; the
+    encode's launches held to its epochs on every rank; the halo-split
+    ``lpe_to_pe`` and its gradient within HALO_OF_MAX of the whole canvas."""
+    cfg = KODAK
+    out_dir = os.path.join(tmp_root, "kodak_world2")
+    os.makedirs(out_dir)
+    inp = os.path.join(out_dir, "in.pt")
+    torch.save({"seed": seed}, inp)
+    t0 = time.perf_counter()
+    launch.spawn(patch_rank, SCALE_RANKS, (inp, out_dir, SCALE_MODES), backend="gloo",
+                 cuda="shared", timeout_s=SCALE_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"patch_{r}.pt"), weights_only=False)
+             for r in range(SCALE_RANKS)]
+    one = kodak_world1(seed, SCALE_MODES)
+    codec, X = one["codec"], one["X"]
+    R = X.shape[0]
+    pe, grad = halo_lpe_to_pe(codec.up, cfg, R, seed + 3, None)
+    checks, out = {}, {"spawn_s": spawn_s, "layout": ranks[0]["reason"], "encode": {}}
+    for what, got, want in (("PEs", ranks[0]["pe"], pe), ("LPE gradient", ranks[0]["grad"], grad)):
+        err = (got - want).abs().max().item()
+        of_max = err / want.abs().max().item()
+        out[f"halo_{what}"] = of_max
+        print(f"Kodak lpe_to_pe over {SCALE_RANKS} ranks (halo-split canvas, exact) vs the whole "
+              f"canvas on the card, {what}: max abs diff {err:.3e}, {of_max:.3e} of the largest "
+              f"entry (tolerance {HALO_OF_MAX})")
+        checks[f"halo-split {what} within {HALO_OF_MAX} of the largest entry"] = (
+            of_max <= HALO_OF_MAX)
+    for mode in SCALE_MODES:
+        ms_ = [r[mode] for r in ranks]
+        ref = one["encode"][mode]
+        frac = index_agreement(ms_[0]["indices"], ref.indices)
+        floor = 1 - 2 * (1 - one["nudge"][mode])
+        gap = ms_[0]["psnr"] - float(np.mean(ref.distortion))
+        checks[f"{mode}: both ranks return the same encode"] = all(
+            all(np.array_equal(m["indices"][n], ms_[0]["indices"][n]) for n in m["indices"])
+            and np.array_equal(m["reconstruction"], ms_[0]["reconstruction"]) for m in ms_)
+        checks[f"{mode}: launches: siren_bwd = epochs, siren_fwd >= epochs + 1 on every rank"] = (
+            all(m["launches"]["siren_bwd"] == m["epochs"]
+                and m["launches"]["siren_fwd"] >= m["epochs"] + 1 for m in ms_))
+        checks[f"{mode}: indices >= {floor:.5f} equal to world size 1"] = frac >= floor
+        checks[f"{mode}: PSNR within 0.3 dB of world size 1"] = abs(gap) < 0.3
+        _, idx = read_bitstream(os.path.join(out_dir, f"kodak_{mode}.rctb"))
+        y = decode(codec, idx, X, cfg).cpu()
+        derr = (y - torch.from_numpy(ms_[0]["reconstruction"])).abs().max().item()
+        torch.testing.assert_close(y, torch.from_numpy(ms_[0]["reconstruction"]), **DECODE_TOL)
+        checks[f"{mode}: rank 0's bitstream decodes in one process within DECODE_TOL"] = True
+        out["encode"][mode] = {"index_agreement": frac, "floor": floor, "psnr_gap_db": gap,
+                               "nudge_index_agreement": one["nudge"][mode], "decode_err": derr}
+        print(f"Kodak over {SCALE_RANKS} ranks on one card (gloo), {mode}: encode "
+              f"(R={R}, {ranks[0]['rows']} rows a rank) against world size 1: indices equal "
+              f"{frac:.5f} (floor {floor:.5f}; world size 1 against itself nudged by 1e-7 "
+              f"{one['nudge'][mode]:.5f}), PSNR {ms_[0]['psnr']:.4f} against "
+              f"{np.mean(ref.distortion):.4f} dB ({gap:+.5f}); rank 0's bitstream decoded in "
+              f"one process: max abs diff {derr:.3e} [{card}]")
+    print(f"Kodak over {SCALE_RANKS} ranks ({ranks[0]['reason']}; spawn and both ranks "
+          f"{spawn_s:.3f} s):")
+    for what, ok in checks.items():
+        print(f"  {what}: {ok}")
+    print(f"per rank (correctness plumbing on one shared card, not a scale-out speed) [{card}]:")
+    out["ranks"] = []
+    for r in ranks:
+        entry = {"rank": r["rank"], "peak_mib": r["peak_mib"]}
+        for mode in SCALE_MODES:
+            m = r[mode]
+            entry[mode] = {"epoch_s": m["epoch_s"], "epoch_s_timed": m["epoch_s_timed"],
+                           "epoch_collective_ms": m["epoch_collective_ms"],
+                           "encode_s": m["wall_s"], "encode_collective_s": m["collective_s"],
+                           "encode_launches": m["launches"]}
+            print(f"  rank {r['rank']} (cuda:{r['device']}), {mode}: epoch_s {m['epoch_s']:.6f} "
+                  f"(S={SAMPLE_SIZE}); with each collective timed {m['epoch_s_timed']:.6f}, of "
+                  "which collectives an epoch: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in m["epoch_collective_ms"].items())
+                  + f"; compress (collectives timed) {m['wall_s']:.3f} s, {m['epochs']} epochs, "
+                  "collectives "
+                  + ", ".join(f"{k} {m['collectives'][k]} in {v:.3f} s"
+                              for k, v in m["collective_s"].items())
+                  + f"; launches {m['launches']}")
+        print(f"  rank {r['rank']}: peak memory {r['peak_mib']:.1f} MiB")
+        out["ranks"].append(entry)
+    if not all(checks.values()):
+        raise AssertionError("Kodak over ranks: " + ", ".join(k for k, v in checks.items()
+                                                               if not v))
+    return out
+
+
 # the CIFAR decode check (card rows 0-7 against the CPU's, atol 1e-4 and
 # rtol 1e-4) repeated this many times under each choice of cuDNN algorithms
 DECODE_REPEATS = 5
@@ -2667,9 +2953,11 @@ def main(argv=None) -> int:
             world1 = scaleout_world1(args.seed, card, tmp_root, ct["argv"], ct["prior"])
         with phase(f"scale-out: world size {SCALE_RANKS} on one card (gloo)"):
             world2 = scaleout_world2(args.seed, card, tmp_root, ct["train_dir"])
+        with phase(f"Kodak over {SCALE_RANKS} ranks on one card (gloo)"):
+            kodak2 = kodak_world2(args.seed, card, tmp_root)
     finally:
         shutil.rmtree(tmp_root, ignore_errors=True)
-    scale_out = {"world1": world1, "world2": world2}
+    scale_out = {"world1": world1, "world2": world2, "kodak_world2": kodak2}
     train_launches = {"cifar_train": train["cifar_train"]["launches"],
                       "rd_sweep": train["rd_sweep"]["launches"],
                       "kodak_train": train["kodak_train"]["launches"],
@@ -2678,7 +2966,9 @@ def main(argv=None) -> int:
                       "scaleout_world1_nccl_cli_compress": world1["compress_launches"],
                       **{f"scaleout_world2_rank{r['rank']}_{mode}_{p}": r[mode][f"{p}_launches"]
                          for r in world2["ranks"] for mode in SCALE_MODES
-                         for p in ("train", "encode")}}
+                         for p in ("train", "encode")},
+                      **{f"kodak_world2_rank{r['rank']}_{mode}_encode": r[mode]["encode_launches"]
+                         for r in kodak2["ranks"] for mode in SCALE_MODES}}
     train_shapes = {"cifar_train": train["timing"], "kodak_train": train["kodak_train"]}
     with phase("precision modes"):
         modes = precision_modes(codec, state0, X, Y, art, idx, res, args.seed, card, kodak,
@@ -2788,6 +3078,17 @@ def main(argv=None) -> int:
               f"{1e3 * r[mode]['train_collective_s']:.3f} ms), epoch_s {r[mode]['epoch_s']:.6f}"
               for r in world2["ranks"] for mode in SCALE_MODES)
           + f" (correctness plumbing on one card, not a scale-out speed) [{card}]")
+    print(f"Kodak over {SCALE_RANKS} ranks on one card (gloo; {kodak2['layout']}): encode "
+          "indices equal to world size 1 "
+          + ", ".join(f"{mode} {e['index_agreement']:.5f} (floor {e['floor']:.5f}, PSNR "
+                      f"{e['psnr_gap_db']:+.5f} dB)" for mode, e in kodak2["encode"].items())
+          + f"; halo-split PEs / gradient within {kodak2['halo_PEs']:.3e} / "
+          f"{kodak2['halo_LPE gradient']:.3e} of the largest entry; per rank " + ", ".join(
+              f"{mode} epoch_s {r[mode]['epoch_s']:.6f} (halo "
+              f"{r[mode]['epoch_collective_ms']['halo']:.3f} ms, gathers "
+              f"{r[mode]['epoch_collective_ms']['gathers']:.3f} ms)"
+              for r in kodak2["ranks"] for mode in SCALE_MODES)
+          + f" (one shared card, not a scale-out speed) [{card}]")
     print(f"total: {time.perf_counter() - t_all:.2f} s [{card}]")
     print(json.dumps({"scale_out": scale_out}))
     print(json.dumps({"precision_modes": modes}))

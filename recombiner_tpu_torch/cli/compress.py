@@ -12,10 +12,12 @@ and ``.rctb`` bitstream.
         --prior_path out/PRIOR_....npz --save_dir out/ [--schedule adaptive] \\
         [--state_path out/enc_state.npz] [--n_devices 2]
 
-Data-parallel with ``--n_devices`` (``parallel/launch.py``): the rows of
-whole datapoints are sharded over the ranks when they divide by the world
-size (a patch config's batch is replicated: its coded rows mix every
-patch), and rank 0 writes every file.
+Data-parallel with ``--n_devices`` (``parallel/launch.py``): the rows are
+sharded over the ranks by ``parallel/mesh.py::partition``, whole
+datapoints when their count divides by the world size, and for a patch
+config also one datapoint's patch rows in slabs of its canvas (a Kodak
+image at 2 or 4 ranks); the line "Encoding on W ranks (rows sharded: ...)"
+or "(replicated: ...)" says which and why. Rank 0 writes every file.
 """
 
 from __future__ import annotations
@@ -206,14 +208,13 @@ def main(argv=None):
     if args.state_path:
         resume, restored = resume_from(args.state_path, art, dev)
         state = state if restored is None else restored
-    part = partition(mesh, X.shape[0] // cfg.patches_per_datapoint, mixes_rows=cfg.patch)
+    part = partition(mesh, X.shape[0] // cfg.patches_per_datapoint, cfg)
     state = shard_rows(state, part)
     X, Y = shard_rows(X, part), shard_rows(Y, part)
     if mesh.world > 1 and primary:
         print(f"Encoding on {mesh.world} ranks "
-              f"({'rows sharded' if part.sharded else 'replicated'})", flush=True)
-    remat = resolve_remat(args.remat, cfg, X.shape[0] * part.shards, args.sample_size,
-                          part.shards)
+              f"({'rows sharded' if part.sharded else 'replicated'}: {part.reason})", flush=True)
+    remat = resolve_remat(args.remat, cfg, X.shape[0], args.sample_size)  # this rank's rows
     n_groups = [codec.meta(n).n_groups for n in codec.level_names]
     if primary:
         print(f"Model initialized. Expected bitrate {cfg.bitrate_of_groups(*n_groups):.3f}",

@@ -259,11 +259,14 @@ def main(argv=None):
     # training rows and test rows are sharded separately
     ppd = cfg.patches_per_datapoint
     part_tr = partition(mesh, Xtr.shape[0] // ppd)
-    part_te = partition(mesh, Xte.shape[0] // ppd, mixes_rows=cfg.patch)
+    part_te = partition(mesh, Xte.shape[0] // ppd, cfg)
     Xtr, Ytr = (shard_rows(torch.from_numpy(np.ascontiguousarray(a)), part_tr).to(dev)
                 for a in (Xtr, Ytr))
-    remat = resolve_remat(args.remat, cfg, Xte.shape[0], args.sample_size, part_te.shards)
     Xte, Yte = shard_rows(Xte, part_te), shard_rows(Yte, part_te)
+    if mesh.world > 1 and primary:
+        layout = "rows sharded" if part_te.sharded else "replicated"
+        print(f"Encoding on {mesh.world} ranks ({layout}: {part_te.reason})", flush=True)
+    remat = resolve_remat(args.remat, cfg, Xte.shape[0], args.sample_size)  # this rank's rows
 
     points = []
     for max_bitrate in args.bitrates:

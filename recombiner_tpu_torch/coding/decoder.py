@@ -82,12 +82,16 @@ class LevelState:
     compressed: torch.Tensor  # (R, G) bool
     indices: torch.Tensor  # (R, G) transmitted sample indices
 
-    def map_rows(self, fn) -> "LevelState":
-        """``fn`` on every per-row tensor (all of them lead with the rows)."""
+    def map_rows(self, fn, coded_fn=None) -> "LevelState":
+        """``fn`` on every per-row tensor (all of them lead with the rows):
+        on the physical ones (posteriors, frozen cells), and ``coded_fn``
+        (default ``fn``) on the coded ones (``kl_beta``, ``compressed``,
+        ``indices``)."""
+        coded_fn = fn if coded_fn is None else coded_fn
         return LevelState(q=Gaussian(fn(self.q.loc), fn(self.q.log_scale)),
-                          **{f: fn(getattr(self, f)) for f in ("frozen_mask", "frozen_val",
-                                                               "kl_beta", "compressed",
-                                                               "indices")})
+                          frozen_mask=fn(self.frozen_mask), frozen_val=fn(self.frozen_val),
+                          **{f: coded_fn(getattr(self, f)) for f in ("kl_beta", "compressed",
+                                                                     "indices")})
 
 
 @dataclasses.dataclass
@@ -127,17 +131,30 @@ class CodecState:
         return dataclasses.replace(self, **{name: ls})
 
     def _map_rows(self, fn, part) -> "CodecState":
-        return CodecState(part=part, **{n: None if self.level(n) is None
-                                        else self.level(n).map_rows(fn) for n in LEVELS})
+        """``fn(tensor, layout)`` on every per-row tensor, with the layout of
+        its level's physical or coded rows under ``part`` (None:
+        ``self.part``); the result is recorded as laid out by ``part``."""
+        lay = self.part if part is None else part
+
+        def level(n: str):
+            ls = self.level(n)
+            if ls is None:
+                return None
+            if lay is None:
+                return ls.map_rows(lambda t: fn(t, None))
+            return ls.map_rows(lambda t: fn(t, lay.level(n)), lambda t: fn(t, lay.coded(n)))
+
+        return CodecState(part=part, **{n: level(n) for n in LEVELS})
 
     def shard_rows(self, part: Partition) -> "CodecState":
         """This rank's block of a whole state's rows, recorded as laid out
-        by ``part``."""
-        return self._map_rows(lambda t: local_rows(t, part), part)
+        by ``part`` (a level or a coded view that ``part`` keeps whole stays
+        whole)."""
+        return self._map_rows(local_rows, part)
 
     def gathered(self) -> "CodecState":
         """Every rank's rows on every rank (a collective when sharded)."""
-        return self._map_rows(lambda t: gather_rows(t, self.part), None)
+        return self._map_rows(gather_rows, None)
 
 
 def _round_up(x: int, m: int = 128) -> int:
@@ -321,9 +338,9 @@ def draw_noise(codec: Codec, state: CodecState, cfg: ModalityConfig, sample_size
     """The noise of one ``predict``, drawn from ``generator`` in the order the
     JAX package splits its key (LPE, then w, h, hh: ``encoder.py:304``,
     ``models/mappings.py:147``), or zero without one. Every rank's rows are
-    drawn and this rank keeps its own (``state.part``), so a row's noise
-    does not depend on the world size."""
-    part, S = state.part, sample_size
+    drawn and this rank keeps its own (``state.part``; an upper level kept
+    whole is whole), so a row's noise does not depend on the world size."""
+    S = sample_size
     R = state.w.q.loc.shape[0]
     shapes = [(R, S, *cfg.lpe_spatial, cfg.latent_dim), (R, S, cfg.n_inr_params)]
     for name in codec.level_names[1:]:
@@ -331,8 +348,18 @@ def draw_noise(codec: Codec, state: CodecState, cfg: ModalityConfig, sample_size
     dev = state.w.q.loc.device
     if generator is None:
         return [torch.zeros(s, device=dev) for s in shapes]
-    return [local_rows(torch.randn((part.global_rows(s[0]) if part else s[0], *s[1:]),
-                                   generator=generator, device=dev), part) for s in shapes]
+    parts = noise_layouts(codec, state.part)
+    return [local_rows(torch.randn((p.global_rows(s[0]) if p else s[0], *s[1:]),
+                                   generator=generator, device=dev), p)
+            for s, p in zip(shapes, parts)]
+
+
+def noise_layouts(codec: Codec, part: Optional[Partition]) -> list:
+    """The layout of each tensor of a ``Noise`` (LPE, w, then h, hh) under
+    ``part``: w's for the first two, each upper level's own after them."""
+    if part is None:
+        return [None] * (1 + len(codec.level_names))
+    return [part, part] + [part.level(n) for n in codec.level_names[1:]]
 
 
 def predict(codec: Codec, state: CodecState, X: torch.Tensor, cfg: ModalityConfig,
@@ -356,12 +383,13 @@ def predict(codec: Codec, state: CodecState, X: torch.Tensor, cfg: ModalityConfi
     eps = [torch.as_tensor(n, dtype=torch.float32, device=dev) for n in noise]
     lpe = loc[:, None, n_inr:] + scale[:, None, n_inr:] * eps[0].reshape(R, S, D - n_inr)
     lpe = lpe.reshape(R, S, *cfg.lpe_spatial, cfg.latent_dim)
-    pe = lpe_to_pe(codec.up, lpe, cfg)
+    pe = lpe_to_pe(codec.up, lpe, cfg, state.part)
     x = torch.cat([X[:, None].expand(*pe.shape[:3], X.shape[-1]), pe], -1)
     upper = {}
     for name, e in zip(codec.level_names[1:], eps[2:]):
         upper[name] = (*_effective(state.level(name)), e)
-    h_w = sample_hierarchical_latents(loc[:, :n_inr], scale[:, :n_inr], eps[1], cfg, **upper)
+    h_w = sample_hierarchical_latents(loc[:, :n_inr], scale[:, :n_inr], eps[1], cfg,
+                                      part=state.part, **upper)
     return inr_forward_fused(x, h_w, codec.A, cfg)
 
 

@@ -43,6 +43,7 @@ from recombiner_tpu_torch.coding.decoder import (
     LevelState,
     Noise,
     draw_noise,
+    noise_layouts,
     predict,
 )
 from recombiner_tpu_torch.config import ModalityConfig
@@ -55,6 +56,7 @@ from recombiner_tpu_torch.parallel.mesh import (
     is_sharded,
     local_rows,
     ordered_sum,
+    sum_all_over,
 )
 
 LOG2 = math.log(2.0)
@@ -96,16 +98,42 @@ def group_kl(ls: LevelState, meta: LevelMeta) -> torch.Tensor:
     return torch.where(valid, kl[:, cols], 0.0).sum(-1)
 
 
-def beta_weighted_kl(ls: LevelState, meta: LevelMeta) -> torch.Tensor:
+def beta_weighted_kl(ls: LevelState, meta: LevelMeta,
+                     part: Optional[Partition] = None) -> torch.Tensor:
     """sum over cells of beta[owning coded row, owning group] * KL(cell). The
     beta factor is a gather of a detached tensor, so no gradient flows
-    through it and the differentiated path stays elementwise."""
+    through it and the differentiated path stays elementwise. ``part`` is
+    the layout of the level's physical rows: each rank takes the cells of
+    its rows, their coded rows read from the whole ``kl_beta``."""
     beta = ls.kl_beta.detach()
     if meta.beta_row is None:
         factor = beta[:, meta.group_of_col]
     else:
-        factor = beta[meta.beta_row, meta.group_of_col[None, :]]
+        factor = beta[local_rows(meta.beta_row, part), meta.group_of_col[None, :]]
     return (level_kl(ls, meta) * factor).sum()
+
+
+def coded_view(ls: LevelState, name: str, part: Optional[Partition]) -> LevelState:
+    """``ls`` with posteriors in the layout of its coded rows: where those
+    are whole on every rank and the physical rows split (a patch config's
+    w and h), every rank's posteriors gathered, in rank order (every rank
+    must call); else ``ls``. Forward-only: the group KLs and the coding
+    steps read it."""
+    if part is None or not is_sharded(part.level(name)) or is_sharded(part.coded(name)):
+        return ls
+    D = ls.q.loc.shape[1]
+    loc, log_scale = gather_rows(torch.cat([ls.q.loc, ls.q.log_scale], 1), part).split(D, 1)
+    return dataclasses.replace(ls, q=Gaussian(loc, log_scale))
+
+
+def shared_levels(codec: Codec, part: Optional[Partition]) -> Tuple[str, ...]:
+    """The levels every rank holds whole while the rows of w are split: each
+    rank's loss reaches them through its own rows, so their gradient is the
+    rank-ordered sum of every rank's part, and their KL is counted once,
+    on rank 0."""
+    if not is_sharded(part):
+        return ()
+    return tuple(n for n in codec.level_names if not is_sharded(part.level(n)))
 
 
 def update_betas(ls: LevelState, meta: LevelMeta, bits_per_group: float,
@@ -125,8 +153,10 @@ def update_betas(ls: LevelState, meta: LevelMeta, bits_per_group: float,
 
 def _anneal_all(state: CodecState, codec: Codec, cfg: ModalityConfig) -> CodecState:
     for name in codec.level_names:
-        state = state.replace_level(name, update_betas(state.level(name), codec.meta(name),
-                                                       cfg.bits_per_group))
+        ls = state.level(name)
+        beta = update_betas(coded_view(ls, name, state.part), codec.meta(name),
+                            cfg.bits_per_group).kl_beta
+        state = state.replace_level(name, dataclasses.replace(ls, kl_beta=beta))
     return state
 
 
@@ -170,19 +200,27 @@ def elbo_loss(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
     (``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``,
     ``encoder.py:437-438``). The noise is drawn before the checkpointed
     function and passed in: a recomputed forward that drew from the
-    generator again would get other noise, and a wrong gradient."""
+    generator again would get other noise, and a wrong gradient.
+
+    With the rows of w split over ranks (``state.part``) this is this
+    rank's part of the global loss: its rows' squared error and KL, and on
+    rank 0 the KL of every level kept whole (``shared_levels``)."""
     if noise is None:
         noise = draw_noise(codec, state, cfg, sample_size, generator)
     levels = trainable_levels(codec)
+    params = _posteriors(state, levels)
+    part = state.part
+    counted = [n for n in codec.level_names
+               if n not in shared_levels(codec, part) or part.mesh.rank == 0]
 
     def loss_of(*params):
         st = _with_posteriors(state, levels, params)
         y_hat = predict(codec, st, X, cfg, sample_size, noise=noise)
         mse = torch.mean((y_hat - Y[:, None]) ** 2) * Y.shape[0]
-        kl = sum(beta_weighted_kl(st.level(n), codec.meta(n)) for n in codec.level_names)
+        kl = sum(beta_weighted_kl(st.level(n), codec.meta(n), part and part.level(n))
+                 for n in counted)
         return mse + kl, mse
 
-    params = _posteriors(state, levels)
     if remat:
         # the function draws no random numbers, so there is no RNG state to
         # preserve for the recomputation
@@ -201,21 +239,27 @@ class AdamState:
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
 
-    def leaves(self, scheduled: bool, part: Optional[Partition] = None) -> List[np.ndarray]:
+    def leaves(self, scheduled: bool, part: Optional[Partition] = None,
+               levels: Optional[Sequence[str]] = None) -> List[np.ndarray]:
         """The optax state's leaves in ``jax.tree_util`` order, as an encode
         snapshot stores them: count, mu (loc and log_scale of each level, the
         levels sorted: h, hh, w), nu alike, and with a schedule
         (``_make_opt``'s chain) the schedule's count after them. The moments
-        of rows sharded by ``part`` are gathered (every rank must call)."""
+        of rows sharded by ``part`` are gathered (every rank must call);
+        ``levels`` names the moments' levels (``trainable_levels``)."""
         count = np.asarray(self.count, np.int32)
-        out = [count] + [gather_rows(t.detach(), part).cpu().numpy()
-                         for t in self.mu + self.nu]
+        lay = _moment_layouts(part, levels, len(self.mu))
+        out = [count] + [gather_rows(t.detach(), p).cpu().numpy()
+                         for t, p in zip(self.mu + self.nu, lay + lay)]
         return out + [count] if scheduled else out
 
-    def shard_rows(self, part: Optional[Partition]) -> "AdamState":
-        """This rank's rows of a whole state's moments."""
-        return AdamState(self.count, [local_rows(t, part) for t in self.mu],
-                         [local_rows(t, part) for t in self.nu])
+    def shard_rows(self, part: Optional[Partition],
+                   levels: Optional[Sequence[str]] = None) -> "AdamState":
+        """This rank's rows of a whole state's moments (``leaves``'
+        ``levels``)."""
+        lay = _moment_layouts(part, levels, len(self.mu))
+        return AdamState(self.count, [local_rows(t, p) for t, p in zip(self.mu, lay)],
+                         [local_rows(t, p) for t, p in zip(self.nu, lay)])
 
     @classmethod
     def from_leaves(cls, leaves: Sequence, scheduled: bool, device,
@@ -232,6 +276,15 @@ class AdamState:
             raise ValueError("the schedule's step count differs from Adam's")
         t = [torch.tensor(np.asarray(a, np.float32), device=device) for a in leaves[1:n + 1]]
         return cls(count, t[:n // 2], t[n // 2:])
+
+
+def _moment_layouts(part: Optional[Partition], levels: Optional[Sequence[str]],
+                    n: int) -> list:
+    """The layout of each of ``n`` moments ([loc, log_scale] of each of
+    ``levels``) under ``part``."""
+    if part is None:
+        return [None] * n
+    return [part.level(name) for name in levels for _ in range(2)]
 
 
 LearningRate = Union[float, Callable[[int], float]]
@@ -296,11 +349,18 @@ def _epoch(codec: Codec, state: CodecState, params: List[torch.Tensor], X: torch
     posteriors first, then every level's betas annealed when ``i %
     KL_ADJUST_GAP == 0`` (on the pre-step posteriors), then the Adam step.
     Returns (state, Adam state, loss, scaled mse), the last two detached."""
-    state = _with_posteriors(state, trainable_levels(codec), params)
+    levels = trainable_levels(codec)
+    state = _with_posteriors(state, levels, params)
     drawn = ({"generator": source} if isinstance(source, torch.Generator)
-             else {"noise": [local_rows(torch.as_tensor(n), state.part) for n in source()]})
+             else {"noise": [local_rows(torch.as_tensor(n), p)
+                             for n, p in zip(source(), noise_layouts(codec, state.part))]})
     loss, mse = elbo_loss(codec, state, X, Y, cfg, sample_size, remat=remat, **drawn)
-    grads = torch.autograd.grad(loss, params)
+    grads = list(torch.autograd.grad(loss, params))
+    shared = [2 * k + j for k, n in enumerate(levels) if n in shared_levels(codec, state.part)
+              for j in (0, 1)]
+    if shared:  # every rank's part of a level it holds whole, summed in rank order
+        for k, g in zip(shared, sum_all_over([grads[k] for k in shared], state.part.mesh)):
+            grads[k] = g
     if i % KL_ADJUST_GAP == 0:
         state = _anneal_all(state, codec, cfg)
     opt_state = adam_step(params, grads, opt_state, lr)
@@ -314,10 +374,14 @@ def optimize(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch.Tensor,
              remat: bool = False, precision: Optional[str] = None):
     """MC-ELBO posterior optimisation with beta annealing, in the order of
     ``encoder.py:487-569`` (``_epoch``; ``i`` restarts at 0 in each call).
-    Data-parallel (``state.part`` sharded, X and Y this rank's rows) it
-    needs no collective: A and the convs are frozen, the loss's terms are
-    per row, and a callable noise source returns every rank's noise, of
-    which each keeps its rows.
+    Data-parallel (``state.part`` sharded, X and Y this rank's rows): A and
+    the convs are frozen and the loss's terms are per row, so an epoch's
+    collectives are only those of the layout: the conv canvas's halo where
+    a datapoint's rows are split (forward and backward), the rank-ordered
+    sum of the gradient of a level every rank holds whole, and every
+    ``KL_ADJUST_GAP`` epochs the gathered posteriors of a level whose coded
+    rows mix every rank's (``coded_view``). A callable noise source returns
+    every rank's noise, of which each keeps its rows.
     Adam starts fresh unless ``opt_state`` is given; with
     ``return_opt_state`` the result is (state, Adam state), so one run can
     be split into chunks without changing it. Fresh noise per epoch from
@@ -394,7 +458,8 @@ def optimize_adaptive(codec: Codec, state: CodecState, X: torch.Tensor, Y: torch
 # ----------------------------------------------------------- encode step
 
 
-def encode_step_level(ls: LevelState, meta: LevelMeta) -> LevelState:
+def encode_step_level(ls: LevelState, meta: LevelMeta, part: Optional[Partition] = None,
+                      name: str = "w") -> LevelState:
     """Code one group per row, all rows at once: pick each row's max-KL
     uncoded group, A*-score it against the shared codebook through the
     [eps^2, eps] matmul basis (in exact f32), freeze the winning sample.
@@ -404,7 +469,15 @@ def encode_step_level(ls: LevelState, meta: LevelMeta) -> LevelState:
     groups are all coded are left as they are. With row mixing a coded
     row's window reads and writes physical cells (perm_g2p[r', c],
     param2group[c]): distinct for distinct (r', c), since each column of
-    perm_g2p is a permutation, so the scatter has no duplicates."""
+    perm_g2p is a permutation, so the scatter has no duplicates.
+
+    ``part`` is the rows' layout (``name`` the level): where the coded rows
+    are whole and the physical rows split, every rank gathers the
+    posteriors (``coded_view``), runs the same bookkeeping on every coded
+    row, and freezes the cells of its own physical rows."""
+    mine = part.level(name) if part is not None else None
+    local = ls
+    ls = coded_view(ls, name, part)
     R, Gmax = ls.q.loc.shape[0], meta.Gmax
     with torch.no_grad():
         kls = group_kl(ls, meta) / LOG2
@@ -436,14 +509,18 @@ def encode_step_level(ls: LevelState, meta: LevelMeta) -> LevelState:
         # valid lanes of active rows only: distinct cells, so the scatter has
         # no duplicates (the JAX package routes the others out of bounds)
         write = valid & active[:, None]
+        if ls is not local:  # this rank's physical rows only
+            blk = mine.block(R)
+            write = write & (rows >= blk.start) & (rows < blk.stop)
+            rows = rows - blk.start
         r_w, c_w = rows[write], d_cols[write]
-        frozen_val = ls.frozen_val.clone()
-        frozen_mask = ls.frozen_mask.clone()
+        frozen_val = local.frozen_val.clone()
+        frozen_mask = local.frozen_mask.clone()
         frozen_val[r_w, c_w] = z[write]
         frozen_mask[r_w, c_w] = 1.0
         coded = active[:, None] & (torch.arange(meta.n_groups, device=g.device) == g[:, None])
     return dataclasses.replace(
-        ls,
+        local,
         frozen_val=frozen_val,
         frozen_mask=frozen_mask,
         kl_beta=torch.where(coded, 0.0, ls.kl_beta),
@@ -453,7 +530,8 @@ def encode_step_level(ls: LevelState, meta: LevelMeta) -> LevelState:
 
 
 def encode_step(codec: Codec, state: CodecState, level: str = "w") -> CodecState:
-    return state.replace_level(level, encode_step_level(state.level(level), codec.meta(level)))
+    return state.replace_level(level, encode_step_level(state.level(level), codec.meta(level),
+                                                        state.part, level))
 
 
 # ------------------------------------------------------- the coding loop

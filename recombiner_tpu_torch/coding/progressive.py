@@ -20,9 +20,11 @@ differ from ``jax.random``'s, so two packages' encodes of the same data
 differ sample by sample but write the same bitstream and snapshot formats.
 
 Data-parallel (the state's rows sharded by ``state.part``, X and Y this
-rank's rows, as ``cli/compress`` lays them out): every host decision reads
-a global value on every rank (the plateau stops, the groups already coded,
-whether any is), the snapshots gather the rows and rank 0 writes them, and
+rank's rows, as ``cli/compress`` lays them out: whole datapoints, or one
+datapoint's patch rows with the conv canvas's halo exchanged): every host
+decision reads a global value on every rank (the plateau stops, the groups
+already coded, whether any is), the snapshots gather the rows and rank 0
+writes them (a snapshot resumes at any world size), and
 every rank gathers the indices and decodes the same unsharded arrays
 (``progressive.py:533-548``), so every rank returns the same
 ``EncodeResult``.
@@ -41,12 +43,14 @@ import torch
 from recombiner_tpu_torch.coding.decoder import Codec, CodecState, decode, predict
 from recombiner_tpu_torch.coding.encoder import (
     AdamState,
+    coded_view,
     cosine_lr,
     encode_chunk,
     finetune_noise,
     group_kl,
     optimize,
     optimize_adaptive,
+    trainable_levels,
 )
 from recombiner_tpu_torch.config import ModalityConfig
 from recombiner_tpu_torch.device import precision
@@ -98,11 +102,13 @@ def resolve_coding_precision(coding_precision: Optional[str],
 
 def kl_bits_summary(codec: Codec, state: CodecState) -> Dict[str, float]:
     out = {}
+    part = state.part
     for name in codec.level_names:
-        ls = state.level(name)
-        bits = gather_rows(group_kl(ls, codec.meta(name)) / np.log(2.0), state.part)
+        ls = coded_view(state.level(name), name, part)
+        coded = None if part is None else part.coded(name)
+        bits = gather_rows(group_kl(ls, codec.meta(name)) / np.log(2.0), coded)
         bits = bits.cpu().numpy()
-        mask = ~gather_rows(ls.compressed, state.part).cpu().numpy()
+        mask = ~gather_rows(ls.compressed, coded).cpu().numpy()
         if mask.any():
             out[f"{name}_max_bits"] = float(bits[mask].max())
             out[f"{name}_ave_bits"] = float(bits[mask].mean())
@@ -182,6 +188,7 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
     if resume_generator_state is not None:
         generator.set_state(resume_generator_state)
     scheduled = phase1_lr is not None
+    levels = trainable_levels(codec)
     timings: Dict[str, float] = {}
 
     def log(*a, **k) -> None:
@@ -198,7 +205,7 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
             state_path, state,
             extra={**extra, encode_state.GENERATOR_FIELD: encode_state.generator_record(generator),
                    **(state_extra or {})},
-            opt_leaves=None if opt_state is None else opt_state.leaves(scheduled, part))
+            opt_leaves=None if opt_state is None else opt_state.leaves(scheduled, part, levels))
 
     def any_coded(state: CodecState) -> bool:
         return global_any(any(bool(state.level(lv).compressed.any())
@@ -216,7 +223,7 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
     if n_optimize_epochs > phase1_epochs_done and not resuming:
         opt_state = (None if phase1_opt_leaves is None
                      else AdamState.from_leaves(phase1_opt_leaves, scheduled, dev,
-                                                len(codec.level_names)).shard_rows(part))
+                                                len(levels)).shard_rows(part, levels))
         if opt_state is not None and verbose:
             log(f"Resuming phase-1 optimization at {phase1_epochs_done}/{n_optimize_epochs} "
                   "epochs", flush=True)
@@ -293,8 +300,8 @@ def compress(codec: Codec, state: CodecState, X, Y, cfg: ModalityConfig,
                                  "phase1_epochs_done": n_optimize_epochs})
     sync(state.w.indices)
     timings["code_s"] = time.perf_counter() - t1
-    indices = {name: gather_rows(state.level(name).indices, part).cpu().numpy().astype(np.int32)
-               for name in codec.level_names}
+    indices = {name: gather_rows(state.level(name).indices, part and part.coded(name))
+               .cpu().numpy().astype(np.int32) for name in codec.level_names}
     # the final reconstruction through the decoder, from the indices alone:
     # exactly what a receiver renders; every rank decodes every row
     y_pred = decode(codec, indices, gather_rows(X, part), cfg).cpu().numpy()

@@ -12,8 +12,8 @@ which the JAX package does not read.
 
 Data-parallel: every rank calls ``save_encode_state``; a sharded state is
 gathered into the single-device layout (the caller passes the Adam leaves
-gathered, ``AdamState.leaves(scheduled, part)``) and rank 0 writes, so a
-snapshot resumes at any world size: load on every rank, then
+gathered, ``AdamState.leaves(scheduled, part, levels)``) and rank 0
+writes, so a snapshot resumes at any world size: load on every rank, then
 ``shard_rows``.
 """
 

@@ -9,6 +9,13 @@ The stitch, the re-split and ``expand_level`` are ``permute``, ``reshape``
 and ``expand`` (a broadcast) only: their gradients are permutes and ordered
 sums, with no ``index_add``/``scatter_add`` (atomics on CUDA), so an encode
 repeats bit for bit on the card.
+
+When one datapoint's patch rows are split over ranks (``parallel/mesh.py``,
+``Partition.slab``), each rank stitches its slab of the canvas, takes a
+halo of latent rows from its neighbours (``parallel/halo.py``), runs the
+conv stack on slab and halo, crops the halo's pixels and splits its own
+patch rows; an upper level kept whole on every rank is broadcast over
+every patch and this rank's rows are sliced out.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ import torch
 
 from recombiner_tpu_torch.config import ModalityConfig
 from recombiner_tpu_torch.models.upsample import apply_upsample_phased
+from recombiner_tpu_torch.parallel import halo
+from recombiner_tpu_torch.parallel.mesh import Partition, is_sharded, local_rows
 
 # The conv stack lpe_to_pe runs: the phase-decomposed one, as in the JAX
 # package. On the card (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py, phase
@@ -30,12 +39,26 @@ from recombiner_tpu_torch.models.upsample import apply_upsample_phased
 STACK = apply_upsample_phased
 
 
-def lpe_to_pe(upsample_params, lpe: torch.Tensor, cfg: ModalityConfig) -> torch.Tensor:
+def local_patch_nums(cfg: ModalityConfig, part: Optional[Partition] = None) -> Tuple[int, ...]:
+    """The patch grid of the rows one datapoint has on this rank: the
+    config's, or with a slab (``part.slab``) its patches along the split
+    axis."""
+    pn = list(cfg.patch_nums)
+    slab = part.slab if is_sharded(part) else None
+    if slab is not None:
+        pn[slab.axis] = slab.per_rank
+    return tuple(pn)
+
+
+def lpe_to_pe(upsample_params, lpe: torch.Tensor, cfg: ModalityConfig,
+              part: Optional[Partition] = None) -> torch.Tensor:
     """(R, S, *lpe_spatial, latent_dim) -> (R, S, n_pixels, upsample_out).
 
     For a patch config the patch LPEs of one datapoint are stitched into
     one canvas, upsampled together (so the convs see across patch borders)
-    and split again into patches (``mappings.py:36-95``)."""
+    and split again into patches (``mappings.py:36-95``). ``part`` is the
+    rows' layout: with a slab the canvas is this rank's slab, extended by
+    the halo its neighbours send (every rank of the mesh must call)."""
     d = cfg.data_dim
     R, S = lpe.shape[0], lpe.shape[1]
     ls = cfg.lpe_spatial
@@ -44,7 +67,8 @@ def lpe_to_pe(upsample_params, lpe: torch.Tensor, cfg: ModalityConfig) -> torch.
         pe = STACK(upsample_params, lpe.reshape(R * S, *ls, cfg.latent_dim), *args)
         return pe.reshape(R, S, cfg.n_pixels, cfg.upsample_out)
 
-    pn = cfg.patch_nums
+    pn = local_patch_nums(cfg, part)
+    slab = part.slab if is_sharded(part) else None
     n_data = R // int(np.prod(pn))
     # (n_data, *pn, S, *ls, latent) -> (n_data, S, pn0, ls0, pn1, ls1, ..., latent)
     x = lpe.reshape(n_data, *pn, S, *ls, cfg.latent_dim)
@@ -54,7 +78,12 @@ def lpe_to_pe(upsample_params, lpe: torch.Tensor, cfg: ModalityConfig) -> torch.
     x = x.permute(*perm, 2 + 2 * d)
     x = x.reshape(n_data * S, *[pn[i] * ls[i] for i in range(d)], cfg.latent_dim)
 
-    pe = STACK(upsample_params, x, *args)  # (n_data * S, *(pn * ps), out)
+    if slab is None:
+        pe = STACK(upsample_params, x, *args)  # (n_data * S, *(pn * ps), out)
+    else:
+        dim = 1 + slab.axis
+        pe = STACK(upsample_params, halo.exchange(x, part.mesh, slab, dim), *args)
+        pe = halo.crop(pe, slab, dim, cfg.pixel_sizes[slab.axis] // ls[slab.axis])
 
     ps = cfg.pixel_sizes
     interleaved = []
@@ -92,6 +121,7 @@ Level = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (loc, scale, eps)
 def sample_hierarchical_latents(
     loc: torch.Tensor, scale: torch.Tensor, eps: torch.Tensor, cfg: ModalityConfig,
     h: Optional[Level] = None, hh: Optional[Level] = None,
+    part: Optional[Partition] = None,
 ) -> torch.Tensor:
     """Reparameterised sample of the INR weight latents, summed over the
     levels (``mappings.py:130-161``).
@@ -99,13 +129,19 @@ def sample_hierarchical_latents(
     loc/scale: (R, D); eps: (R, S, D) standard-normal noise. For a patch
     config, ``h`` and ``hh`` are each (loc, scale, eps) of levels 2 and 3,
     with R / prod(level{2,3}_patch_nums) rows, broadcast over their patches.
-    The noise is passed in so that the caller owns the generator. Returns
-    (R, S, D)."""
+    ``part`` is the rows' layout: a level split with w is broadcast over
+    this rank's patches, one kept whole over every patch, and this rank's
+    rows are kept. The noise is passed in so that the caller owns the
+    generator. Returns (R, S, D)."""
     out = loc[:, None, :] + scale[:, None, :] * eps
     if not cfg.patch:
         return out
-    for level, lv in ((h, cfg.level2_patch_nums), (hh, cfg.level3_patch_nums)):
+    pn = local_patch_nums(cfg, part)
+    for name, level, lv in (("h", h, cfg.level2_patch_nums), ("hh", hh, cfg.level3_patch_nums)):
         l_loc, l_scale, l_eps = level
-        out = out + expand_level(l_loc[:, None, :] + l_scale[:, None, :] * l_eps,
-                                 cfg.patch_nums, lv)
+        x = l_loc[:, None, :] + l_scale[:, None, :] * l_eps
+        if is_sharded(part) and not is_sharded(part.level(name)):
+            out = out + local_rows(expand_level(x, cfg.patch_nums, lv), part)
+        else:
+            out = out + expand_level(x, pn, lv)
     return out

@@ -2,24 +2,35 @@
 ``recombiner_tpu/parallel/mesh.py``.
 
 The JAX package shards the posterior rows over a 1-D ``("data",)`` mesh and
-lets GSPMD insert the all-reduces. Torch tensors carry no layout, so here
-the layout is an object beside them, one per group of per-datapoint
-tensors (a state's posteriors with its X and Y), as a ``NamedSharding`` is
-one per array:
+lets GSPMD insert the all-reduces and the halo of the stitched conv canvas.
+Torch tensors carry no layout, so here the layout is an object beside them,
+one per group of per-datapoint tensors (a state's posteriors with its X and
+Y), as a ``NamedSharding`` is one per array:
 
 - a ``Mesh`` is the ranks (world size, this rank, the process group);
-- a ``Partition`` says how one group lies over them: in contiguous blocks
-  of whole datapoints (``sharded``), or whole on every rank. The unit is a
-  datapoint, all of its rows: for CIFAR and protein a row, for a patch
-  config its patch rows and its h and hh rows, so the stitched conv
-  canvas, ``expand_level`` and the level broadcasts stay on one rank.
-  When the datapoint count does not divide by the world size every rank
-  holds everything, JAX's ``shard_rows`` rule (``mesh.py:72-85``), so no
-  rank is ever empty (a CUDA launch of B = 0 is invalid). An encode of a
-  patch config is replicated too: its coded rows mix the patch rows of
-  every datapoint (``decoder.patch_permutations``);
+- a ``Partition`` says how one group lies over them, level by level. The
+  rows of w (and of X and Y) lie in contiguous datapoint-major blocks, one
+  per rank (``sharded``), or whole on every rank. Without a config
+  (training, CIFAR, protein) the unit is a whole datapoint: its rows are
+  split when the datapoint count divides by the world size, else every
+  rank holds everything, JAX's ``shard_rows`` rule (``mesh.py:72-85``), so
+  no rank is ever empty (a CUDA launch of B = 0 is invalid). A patch
+  config's encode (``partition(mesh, n, cfg)``) also splits ONE
+  datapoint's patch rows: each rank then holds whole slabs of the
+  datapoint's canvas along its first patch axis with more than one patch
+  (``Slab``), and the conv stack exchanges a halo of latent rows with the
+  neighbouring slabs (``parallel/halo.py``). An upper level (h, hh) is
+  split with w where the rank's h rows are exactly those that cover its w
+  rows, else whole on every rank (``whole``): each rank broadcasts its
+  slice and the level's gradient is the rank-ordered sum of every rank's
+  part. A patch config's coded rows mix the physical rows of every
+  datapoint (``decoder.patch_permutations``), so the per-coded-row fields
+  of w and h (``kl_beta``, ``compressed``, ``indices``) stay whole on every
+  rank (``coded_whole``), and the coding steps gather the posteriors;
 - the shared tensors (the A matrices, the conv stack, the priors and the
   codec) are whole on every rank.
+
+The layout is decided once, by ``partition``, and never changes in a run.
 
 Collectives: every sum of shared gradients, moments and scalars is an
 ``all_gather`` and a sum in rank order (``ordered_sum``), never a bare
@@ -32,8 +43,11 @@ memory; here that copy is explicit (``all_gather``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+import math
+from fractions import Fraction
+from typing import Any, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -67,16 +81,47 @@ def make_mesh(n_devices: Optional[int] = None) -> Mesh:
 
 
 @dataclasses.dataclass(frozen=True)
+class Slab:
+    """One datapoint's patch rows split over ``count`` consecutive ranks:
+    each holds ``per_rank`` patches along patch axis ``axis`` (with every
+    patch of the later axes; the earlier axes have one patch), this rank the
+    ``index``-th slab. ``halo`` latent rows of the canvas are exchanged at
+    each internal edge."""
+
+    axis: int
+    per_rank: int
+    index: int
+    count: int
+    halo: int
+
+    @property
+    def has_prev(self) -> bool:
+        return self.index > 0
+
+    @property
+    def has_next(self) -> bool:
+        return self.index < self.count - 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Partition:
     """How one group of per-datapoint tensors lies over ``mesh``: ``n_data``
-    datapoints (global), in contiguous blocks of ``n_data / world`` per
-    rank when ``sharded``, else whole on every rank. Every level's rows are
-    datapoint-major, so a level of ``n`` global rows gives rank r the rows
-    ``block(n)``."""
+    datapoints (global). When ``sharded``, every level's rows lie in
+    contiguous datapoint-major blocks of 1 / world of them per rank, rank r
+    the rows ``block(n)`` of a level of ``n`` global rows, but the levels in
+    ``whole``, which every rank holds whole; else everything is whole on
+    every rank. The coded-row fields of the levels in ``coded_whole`` are
+    whole on every rank too. ``slab`` is set when one datapoint's rows are
+    split over several ranks; ``reason`` says why the layout is what it
+    is."""
 
     mesh: Mesh
     n_data: int
     sharded: bool
+    whole: Tuple[str, ...] = ()
+    coded_whole: Tuple[str, ...] = ()
+    slab: Optional[Slab] = None
+    reason: str = dataclasses.field(default="", compare=False)
 
     def block(self, n_rows: int) -> slice:
         if not self.sharded:
@@ -87,21 +132,95 @@ class Partition:
     def global_rows(self, n_local: int) -> int:
         return n_local * self.mesh.world if self.sharded else n_local
 
-    @property
-    def shards(self) -> int:
-        """Ranks the rows are split over (the world size, or 1)."""
-        return self.mesh.world if self.sharded else 1
+    def level(self, name: str) -> "Partition":
+        """The layout of level ``name``'s physical rows (posteriors, frozen
+        cells, noise): this one, or whole on every rank."""
+        if self.sharded and name in self.whole:
+            return Partition(self.mesh, self.n_data, False)
+        return self
+
+    def coded(self, name: str) -> "Partition":
+        """The layout of level ``name``'s coded rows (``kl_beta``,
+        ``compressed``, ``indices``)."""
+        if self.sharded and name in self.coded_whole:
+            return Partition(self.mesh, self.n_data, False)
+        return self.level(name)
 
     def __deepcopy__(self, memo):
         return self
 
 
-def partition(mesh: Mesh, n_data: int, mixes_rows: bool = False) -> Partition:
-    """Shard ``n_data`` datapoints over ``mesh`` when they divide by its size
-    (and the group does not ``mixes_rows`` across datapoints, as a patch
-    config's coded rows do), else replicate."""
-    ok = mesh.world > 1 and n_data % mesh.world == 0 and not mixes_rows
-    return Partition(mesh, int(n_data), ok)
+def halo_latents(cfg, axis: int) -> int:
+    """Latent rows of halo that make a slab's pixels exact along ``axis``:
+    the conv stack's reach from an output pixel back into the latent
+    canvas, sum over layers of padding_i / (the product of the scale
+    factors up to layer i), rounded up. Kodak: 2/4 + 1/8 + 1/16 -> 1."""
+    reach, scale = Fraction(0), 1
+    for f, p in zip(cfg.layerwise_scale_factors, cfg.paddings):
+        scale *= f if isinstance(f, int) else f[axis]
+        reach += Fraction(int(p), scale)
+    return math.ceil(reach)
+
+
+def _patch_layout(mesh: Mesh, n_data: int, cfg) -> Partition:
+    """``partition`` of a patch config's encode."""
+    W, ppd = mesh.world, cfg.patches_per_datapoint
+    coded = ("w", "h")  # their coded rows mix the patch rows of every datapoint
+    if n_data % W == 0:
+        return Partition(mesh, n_data, True, coded_whole=coded,
+                         reason=f"{n_data // W} whole datapoint(s) a rank")
+    R = n_data * ppd
+
+    def whole(why: str) -> Partition:
+        return Partition(mesh, n_data, False, reason=why)
+
+    if R % W:
+        return whole(f"{R} patch rows do not divide by {W}")
+    rows = R // W
+    if ppd % rows:
+        return whole(f"{rows} rows a rank split datapoints of {ppd} rows unevenly")
+    pn = tuple(cfg.patch_nums)
+    axis = next(i for i, n in enumerate(pn) if n > 1)
+    unit = int(np.prod(pn[axis + 1:]))  # rows of one patch index along the axis
+    if rows % unit:
+        return whole(f"{rows} rows a rank are not whole slabs of {unit} rows along patch "
+                     f"axis {axis}")
+    per = rows // unit
+    halo = halo_latents(cfg, axis)
+    if per * cfg.lpe_spatial[axis] < halo:
+        return whole(f"a slab of {per * cfg.lpe_spatial[axis]} latent rows is thinner than "
+                     f"the conv stack's halo of {halo}")
+    count = ppd // rows
+    slab = Slab(axis=axis, per_rank=per, index=mesh.rank % count, count=count, halo=halo)
+    upper = (("h", cfg.level2_patch_nums), ("hh", cfg.level3_patch_nums))
+    kept = tuple(name for name, lv in upper if per % lv[axis])
+    split = [name for name, _ in upper if name not in kept]
+    return Partition(mesh, n_data, True, whole=kept, coded_whole=coded, slab=slab,
+                     reason=(f"{per} of {pn[axis]} patches along axis {axis} a rank, "
+                             f"a halo of {halo} latent row(s); w"
+                             + "".join(f", {n}" for n in split) + " split"
+                             + "".join(f", {n}" for n in kept) + (" whole" if kept else "")))
+
+
+def partition(mesh: Mesh, n_data: int, cfg=None) -> Partition:
+    """The layout of ``n_data`` datapoints over ``mesh``, decided once.
+
+    Without ``cfg`` (training; every non-patch config) whole datapoints are
+    sharded when their count divides by the world size, else replicated.
+    With a patch config (an encode) the rows of w are also split when
+    their count divides by the world size and each rank's rows are whole
+    slabs of one datapoint's canvas along its first patch axis with more
+    than one patch (Kodak's 96 rows at 2 or 4 ranks, not at 3); an upper
+    level is split with them where its rows per rank cover whole slabs,
+    else kept whole."""
+    if mesh.world == 1:
+        return Partition(mesh, int(n_data), False, reason="one rank")
+    if cfg is not None and cfg.patch:
+        return _patch_layout(mesh, int(n_data), cfg)
+    ok = n_data % mesh.world == 0
+    return Partition(mesh, int(n_data), ok,
+                     reason=(f"{n_data // mesh.world} whole datapoint(s) a rank" if ok else
+                             f"{n_data} datapoints do not divide by {mesh.world}"))
 
 
 def is_sharded(part: Optional[Partition]) -> bool:

@@ -23,8 +23,8 @@ def stored_activation_gb(cfg: ModalityConfig, n_rows: int, sample_size: int,
     """Estimated stored activations per device for one ELBO backward, in GB:
     the INR chain, plus for a patch config about 4 live arrays of the
     stitched canvas's positional encodings (n_data * S, canvas pixels, 16).
-    ``n_rows`` counts every rank's rows and ``n_devices`` the ranks they are
-    split over (``Partition.shards``: 1 when every rank holds them all)."""
+    ``n_rows`` counts the rows of ``n_devices`` ranks that split them (the
+    CLIs pass the rows one rank holds, and 1)."""
     rows_per_device = n_rows * sample_size / max(n_devices, 1)
     gb = _CHAIN_ARRAYS * rows_per_device * cfg.n_pixels * 32 * 4 / 1e9
     if cfg.patch:

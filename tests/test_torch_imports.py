@@ -12,8 +12,8 @@ import recombiner_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "flax", "optax", "tqdm", "recombiner_tpu")
-# the encode, modalities, prior-training, precision and scale-out slices' modules, named so
-# that the check above cannot pass without them
+# the encode, modalities, prior-training, precision, scale-out and converter slices'
+# modules, named so that the check above cannot pass without them
 ENCODE_MODULES = ("coding.encoder", "coding.progressive", "coding.gumbel", "cli.compress",
                   "data.pipeline", "data.image", "data.load_data", "metrics", "io.atomic",
                   "io.encode_state", "io.checkpoint", "models.upsample", "models.mappings",
@@ -21,7 +21,8 @@ ENCODE_MODULES = ("coding.encoder", "coding.progressive", "coding.gumbel", "cli.
                   "data.export", "cli.decompress", "io.convert", "priors.trainer",
                   "priors.artifact", "io.train_state", "cli.train", "cli.rd_sweep",
                   "utils.platform", "utils.timing", "utils.tracing", "ops.blocked_inr",
-                  "parallel.launch", "parallel.mesh", "parallel.tp")
+                  "parallel.launch", "parallel.mesh", "parallel.tp", "parallel.halo",
+                  "io.convert_reference", "io.export_reference", "cli.convert")
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|tqdm|recombiner_tpu)\b", re.M)
 
 

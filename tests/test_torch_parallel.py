@@ -176,27 +176,37 @@ def _dp_runs(training, world):
 # ------------------------------------------------------------------- mesh
 
 
-@pytest.mark.parametrize("n_data,world,mixes,sharded,block", [
-    (8, 1, False, False, (0, 8)),
-    (8, 2, False, True, (4, 8)),
-    (8, 4, False, True, (2, 4)),
-    (3, 2, False, False, (0, 3)),  # not divisible: every rank holds all
-    (1, 2, False, False, (0, 1)),  # one Kodak image on 2 ranks
-    (4, 2, True, False, (0, 4)),  # a patch encode's coded rows mix datapoints
+@pytest.mark.parametrize("n_data,world,cfg_name,sharded,block", [
+    (8, 1, None, False, (0, 8)),
+    (8, 2, None, True, (4, 8)),
+    (8, 4, None, True, (2, 4)),
+    (3, 2, None, False, (0, 3)),  # not divisible: every rank holds all
+    (1, 2, "kodak", True, (48, 96)),  # one Kodak image on 2 ranks: 4 patch rows each
+    (4, 2, "tiny_patch", True, (8, 16)),  # a patch encode: whole images, coded rows whole
 ])
-def test_partition_by_whole_datapoints(n_data, world, mixes, sharded, block):
+def test_partition_by_whole_datapoints(n_data, world, cfg_name, sharded, block):
     """Shard contiguous blocks of whole datapoints when the count divides by
     the world size, else replicate (JAX's ``shard_rows`` rule); the block of
-    rank 1 (rank 0 at world size 1), of every level's rows; never empty."""
-    part = partition(Mesh(world, min(1, world - 1)), n_data, mixes_rows=mixes)
-    assert part.sharded == sharded
-    b = part.block(n_data)
+    w rows of rank 1 (rank 0 at world size 1); never empty. With a patch
+    config (an encode) one datapoint's patch rows are split too (Kodak's 96
+    at 2 ranks: h split with them, hh whole), and the coded rows of w and h
+    stay whole on every rank, since they mix every datapoint's."""
+    cfg = get_config(cfg_name) if cfg_name else None
+    ppd = cfg.patches_per_datapoint if cfg else 1
+    part = partition(Mesh(world, min(1, world - 1)), n_data, cfg)
+    assert part.sharded == sharded and part.reason
+    b = part.block(n_data * ppd)
     assert (b.start, b.stop) == block and b.stop > b.start
-    # a patch level of 4 rows per datapoint: the same datapoints' rows
-    b4 = part.block(4 * n_data)
-    assert (b4.start, b4.stop) == (4 * block[0], 4 * block[1])
-    assert part.global_rows(b.stop - b.start) == n_data
-    assert part.shards == (world if sharded else 1)
+    assert part.global_rows(b.stop - b.start) == n_data * ppd
+    if cfg is None or part.slab is None:
+        # an upper level of 4 rows per datapoint: the same datapoints' rows
+        b4 = part.level("h").block(4 * n_data)
+        assert (b4.start, b4.stop) == (4 * block[0] // ppd, 4 * block[1] // ppd)
+    else:  # Kodak's h rows 3-5 cover patch rows 4-7; its one hh row is whole
+        assert part.slab.per_rank == 4 and part.slab.halo == 1 and part.whole == ("hh",)
+        hb, hhb = part.level("h").block(6), part.level("hh").block(1)
+        assert (hb.start, hb.stop, hhb.start, hhb.stop) == (3, 6, 0, 1)
+    assert part.coded("w").sharded == (sharded and cfg is None)
 
 
 def test_shard_rows_of_a_state_keeps_every_levels_block():

@@ -10,10 +10,13 @@ beside it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import os
 import shutil
 import sys
+import types
 
 import numpy as np
 import torch
@@ -22,6 +25,7 @@ from recombiner_tpu_torch.cli import compress as compress_cli
 from recombiner_tpu_torch.coding import decoder, encoder, progressive
 from recombiner_tpu_torch.config import get_config
 from recombiner_tpu_torch.io import checkpoint, convert, encode_state
+from recombiner_tpu_torch.models import mappings
 from recombiner_tpu_torch.models.inr import inr_forward
 from recombiner_tpu_torch.parallel import launch, tp
 from recombiner_tpu_torch.parallel.mesh import (
@@ -115,17 +119,31 @@ def train_worker(rank, inp, out_dir):
 def _codec(c, device="cpu"):
     art = checkpoint.load_prior_artifact(c["prior"])
     codec, state = decoder.init_codec(art, c["X"].shape[0], device=device)
-    if "eps" in c:  # the JAX package's codebook, so that both code alike
-        codec = dataclasses.replace(codec, w=dataclasses.replace(
-            codec.w, eps=torch.tensor(c["eps"]), gumbel=torch.tensor(c["gumbel"])))
+    books = dict(c.get("codebooks", {}))
+    if "eps" in c:
+        books["w"] = (c["eps"], c["gumbel"])
+    for name, (eps, gumbel) in books.items():  # the JAX package's, so that both code alike
+        codec = dataclasses.replace(codec, **{name: dataclasses.replace(
+            codec.meta(name), eps=torch.tensor(eps), gumbel=torch.tensor(gumbel))})
     return art, codec, state
+
+
+def _layout(c, cfg, mesh):
+    """The encode layout of ``c``'s rows (``partition`` with the config)."""
+    return partition(mesh, c["X"].shape[0] // cfg.patches_per_datapoint, cfg)
 
 
 def replayed_compress(c, mesh):
     """``compress`` with JAX's phase-1 noise and CRN finetune noise replayed
-    (global arrays; each rank keeps its rows)."""
+    (global arrays; each rank keeps its rows), every level's finetunes as
+    long as the CRN stream; with ``c['nudge']`` from initial w means
+    nudged by that much (relative)."""
     art, codec, state = _codec(c)
-    part = partition(mesh, c["X"].shape[0])
+    if c.get("nudge"):  # the initial w means scaled by (1 + nudge)
+        w = state.w
+        state = state.replace_level("w", dataclasses.replace(
+            w, q=dataclasses.replace(w.q, loc=w.q.loc * (1 + c["nudge"]))))
+    part = _layout(c, art.config, mesh)
     crn = c["crn"]
     real = progressive.finetune_noise
     progressive.finetune_noise = lambda gen, on: (lambda: _feeder(crn))
@@ -133,8 +151,8 @@ def replayed_compress(c, mesh):
         res = progressive.compress(
             codec, shard_rows(state, part), shard_rows(c["X"], part), shard_rows(c["Y"], part),
             art.config, _feeder(c["phase1"]), n_optimize_epochs=len(c["phase1"]),
-            sample_size=c["S"], finetune_overrides={"w": len(crn)}, lr=c["lr"],
-            finetune_crn=True)
+            sample_size=c["S"], finetune_overrides={n: len(crn) for n in codec.level_names},
+            lr=c["lr"], finetune_crn=True)
     finally:
         progressive.finetune_noise = real
     return res, part
@@ -295,3 +313,86 @@ def grid_worker(rank, inp, out_dir):
     out["pixels"] = {"mse": float(m.mse), "kl": float(m.kl), "shared": _shared(s1),
                      "state": convert.prior_state_leaves(s1.gathered())[0]}
     _save(out, out_dir, "grid", rank)
+
+
+# ------------------------------------------------------ patch rows over ranks
+
+
+def lpe_case(c, mesh):
+    """``lpe_to_pe`` and its LPE gradient (cotangent ``dy``) on this rank's
+    rows of ``c``'s canvas, gathered."""
+    cfg = c["cfg"]
+    part = partition(mesh, c["n_data"], cfg)
+    up = convert.torch_params_from_artifact(types.SimpleNamespace(A=[], up=c["up"]), "cpu")[1]
+    lpe = shard_rows(torch.from_numpy(c["lpe"]), part).requires_grad_()
+    pe = mappings.lpe_to_pe(up, lpe, cfg, part)
+    (g,) = torch.autograd.grad(pe, lpe, shard_rows(torch.from_numpy(c["dy"]), part))
+    return {"slab": part.slab, "whole": part.whole,
+            "pe": gather_rows(pe.detach(), part).numpy(), "grad": gather_rows(g, part).numpy()}
+
+
+def _summary(res, part):
+    return {"indices": res.indices, "reconstruction": res.reconstruction,
+            "sharded": part.sharded, "slab": part.slab, "whole": part.whole,
+            "w_loc": res.state.w.q.loc.numpy()}
+
+
+def generator_compress(c, mesh, state, state_path=None, resume=None):
+    """A patch ``compress`` from a seeded generator, snapshotting every 2
+    groups to ``state_path``."""
+    art, codec, _ = _codec(c)
+    part = _layout(c, art.config, mesh)
+    res = progressive.compress(
+        codec, shard_rows(state, part), shard_rows(c["X"], part), shard_rows(c["Y"], part),
+        art.config, torch.Generator().manual_seed(5), sample_size=c["S"], lr=c["lr"],
+        n_optimize_epochs=c["epochs"], finetune_overrides={n: 1 for n in codec.level_names},
+        state_path=state_path, save_every=2,
+        state_extra={"prior_fingerprint": checkpoint.prior_fingerprint(art)}, **(resume or {}))
+    return res, part
+
+
+def crash_at_h(state_path):
+    """``encode_state.save_encode_state`` replaced by one that raises
+    ``Crash`` after the first snapshot of level h; returns the original."""
+    save = encode_state.save_encode_state
+
+    def crashing(path, state, **kw):
+        save(path, state, **kw)
+        if kw["extra"].get("level") == "h":
+            raise Crash("h")
+
+    encode_state.save_encode_state = crashing
+    return save
+
+
+def patch_worker(rank, inp, out_dir):
+    """The halo-split canvases; at world size 2 also the replayed-noise
+    patch encodes, a snapshot taken here (crashed at level h) and one taken
+    in one process resumed here, and the compress CLI in this group."""
+    torch.set_num_threads(1)
+    c = _load(inp)
+    mesh = make_mesh()
+    out = {"lpe": {name: lpe_case(case, mesh) for name, case in c["lpe"].items()}}
+    if mesh.world == 2:
+        out["encode"] = {name: _summary(*replayed_compress(case, mesh))
+                         for name, case in c["encode"].items()}
+        snap = c["snapshot"]
+        art, _, state = _codec(snap)
+        path = os.path.join(out_dir, "two_ranks_state.npz")
+        save = crash_at_h(path)
+        try:
+            generator_compress(snap, mesh, state, path)
+            raise AssertionError("no snapshot at level h")
+        except Crash:
+            pass
+        finally:
+            encode_state.save_encode_state = save
+        torch.distributed.barrier()
+        out["full"] = _summary(*generator_compress(snap, mesh, state))
+        resume, restored = compress_cli.resume_from(snap["one_rank_state"], art, "cpu")
+        out["resumed"] = _summary(*generator_compress(snap, mesh, restored, None, resume))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            compress_cli.main(list(c["cli"]))
+        out["cli"] = buf.getvalue()
+    _save(out, out_dir, f"patch{mesh.world}", rank)
