@@ -19,9 +19,11 @@ caught and passed over but the crashes phase 12 simulates):
 1. the card: name and power limit from nvidia-smi;
 2. build both CUDA kernels (ops/csrc/siren_fwd.cu, ops/csrc/siren_bwd.cu,
    both including ops/csrc/siren_mma.cuh) with nvcc, one process each,
-   started together; print ptxas' register / shared-memory / spill lines
-   and each launcher's plan at CIFAR widths (warps and shared memory per
-   block, resident blocks per SM);
+   started together; print ptxas' register / shared-memory / spill lines,
+   registers and spill bytes by instance (the fixed-width ones for CIFAR's,
+   audio's and video's widths, and the run-time one), and each launcher's
+   plan at CIFAR's, audio's, video's and TINY's widths (instance, warps and
+   shared memory per block, resident blocks per SM);
 3. hold siren_fwd against its plain PyTorch version on the card: CIFAR
    B = 500, P = 1024 in both launch shapes (one sample per block, the main
    path's, and groups of 8), and B = 3 with P = 1000 (not a multiple of the
@@ -31,7 +33,11 @@ caught and passed over but the crashes phase 12 simulates):
    (R = 500 x S = 5), P = 1024, and B = 3, P = 1000; two launches must be
    bitwise equal; at B = 2,500 the kernel's and the plain version's gaps to
    an f64 evaluation are printed; and siren_fwd at the encode's B = 2,500 in the launch the
-   encode makes (one sample per block);
+   encode makes (one sample per block); then the run-time-width instance,
+   which no full-size path runs: both kernels at TINY's widths 32-8-8-3
+   (B = 500 / 2,500, P = 256, timed) and at 64-64-40-7, each held against
+   its plain version, its and the plain version's gaps to an f64 evaluation
+   printed;
 5. the decode slice: a CIFAR prior artifact made from --seed by the port's
    own code (nothing is read from docs/), init_codec at R = 500, random
    16-bit indices, decode on the card with the launch counts read around
@@ -97,7 +103,10 @@ caught and passed over but the crashes phase 12 simulates):
    96), each on a random prior of its shapes from --seed and each followed
    by its export: ``cli.decompress --export_media`` on the card on the
    decode's indices, equal to the decode, and every WAV, NPZ and PDB file
-   read back; video also with its phase stack held against the plain one
+   read back; each kernel check prints the instance it ran on (a
+   fixed-width one must not spill) and its gap to an f64 evaluation over
+   the plain version's; audio's and video's also siren_fwd at the encode's
+   B = 300 / 320; video also with its phase stack held against the plain one
    on the card, remat off/on/on/off (the epochs repeat bit for bit) and a
    crash at level h resumed;
 19. CIFAR train: 2,000 smooth 32 x 32 PNGs from --seed written with the
@@ -231,7 +240,7 @@ from recombiner_tpu_torch.cli.compress import resume_from
 from recombiner_tpu_torch.coding import encoder, progressive
 from recombiner_tpu_torch.coding import decoder
 from recombiner_tpu_torch.coding.decoder import decode, init_codec
-from recombiner_tpu_torch.config import AUDIO, CIFAR, KODAK, PROTEIN, VIDEO
+from recombiner_tpu_torch.config import AUDIO, CIFAR, KODAK, PROTEIN, TINY, VIDEO
 from recombiner_tpu_torch.coords import grid_fourier_features
 from recombiner_tpu_torch.data import export, protein, synthetic
 from recombiner_tpu_torch.data.pipeline import points_from_data
@@ -298,6 +307,11 @@ ATOL = RTOL = 1e-4
 # gradient entry. At these inputs the f32 plain version itself differs from
 # an f64 evaluation by about 5e-5 of it.
 BWD_OF_MAX = 2e-4
+# ptxas' lines for each kernel instance (``ptxas_by_instance``)
+PTXAS_ENTRY = re.compile(
+    r"(?:siren_fwd|siren_bwd)_kernelI8InstanceILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+PTXAS_REGS = re.compile(r"Used (\d+) registers")
 # H100 SXM data-sheet peaks (dense): FP32 outside the tensor cores, TF32 on
 # them, HBM3.
 PEAK_FP32_FLOPS = 67e12
@@ -340,21 +354,6 @@ def bwd_work(x: torch.Tensor, theta: torch.Tensor, dy: torch.Tensor, dims):
     macs = [dims[i] * dims[i + 1] for i in range(len(dims) - 1)]
     flops = 2 * B * P * (sum(macs[:-1]) + 2 * sum(macs))
     return flops, 4 * (2 * x.numel() + 2 * theta.numel() + dy.numel())
-
-
-def launch_plan(name: str, dims) -> dict:
-    """Warps per block, dynamic shared memory per block and resident blocks
-    per SM that the kernel's launcher picks for these widths."""
-    fn = getattr(_build.load(name), f"{name}_plan")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    out = (ctypes.c_int * 4)()
-    rc = fn(len(dims) - 1, ctypes.cast((ctypes.c_int * len(dims))(*dims), ctypes.c_void_p),
-            ctypes.cast(out, ctypes.c_void_p))
-    if rc != 0:
-        raise RuntimeError(f"{name}_plan failed: cudaError {rc}")
-    return {"warps_per_block": out[0], "smem_bytes_per_block": out[1],
-            "blocks_per_sm": out[2]}
 
 
 @contextlib.contextmanager
@@ -766,63 +765,171 @@ def protein_data(seed: int):
     return [synthetic.protein_backbone(rng, 96) for _ in range(1000)]
 
 
-def kernel_checks(art, B: int, S: int, gen, card: str, errs: list, bwd_errs: list,
-                  label: str):
-    """siren_fwd at decode's B and siren_bwd at the encode's B * S, at the
-    config's P and widths, each held against its plain version and an f64
-    evaluation (two siren_bwd launches bitwise equal), timed, with its
-    bound. Appends the disagreements to ``errs`` and ``bwd_errs``; returns
-    the two kernels' entries."""
-    cfg = art.config
-    dims, P = cfg.net_dims, cfg.n_pixels
-    x, theta = kernel_inputs(art, B, P, gen)
-    ref = fused_inr.siren_forward_reference(x, theta, dims, cfg.w0)
-    got = fused_inr.siren_forward(x, theta, dims, cfg.w0, samples_per_block=1)
+def ptxas_by_instance(log: str) -> dict:
+    """{instance name: {"registers", "spill_stores", "spill_loads"}} of one
+    kernel library, from nvcc's ``-Xptxas -v`` lines."""
+    out, inst = {}, None
+    for line in log.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            L, in0, hid, outw = map(int, m.groups())
+            inst = fused_inr.instance_name(
+                fused_inr.instance((in0,) + (hid,) * (L - 1) + (outw,)) if in0 else 0)
+            out[inst] = {}
+            continue
+        m = PTXAS_SPILL.search(line)
+        if inst and m:
+            out[inst]["spill_stores"], out[inst]["spill_loads"] = int(m[1]), int(m[2])
+        m = PTXAS_REGS.search(line)
+        if inst and m:
+            out[inst]["registers"] = int(m[1])
+    return out
+
+
+def instance_report(name: str, dims, B: int, P: int) -> dict:
+    """The instance of kernel ``name`` that these widths take, its launch
+    plan at B samples of P pixels and ptxas' registers and spills for it
+    (from its build's log); raises if a fixed-width instance spills."""
+    plan = fused_inr.launch_plan(name, list(dims), B, P)
+    inst = fused_inr.instance_name(plan["instance"])
+    rep = {"instance": inst, "plan": plan,
+           "ptxas": ptxas_by_instance(_build.build(name).log).get(inst)}
+    if plan["instance"] != fused_inr.instance(dims):
+        raise AssertionError(f"{name}_plan names instance {inst} for widths {list(dims)}, the "
+                             f"wrapper {fused_inr.instance_name(fused_inr.instance(dims))}")
+    if plan["instance"] != fused_inr.RUNTIME_INSTANCE and (
+            rep["ptxas"] is None or rep["ptxas"]["spill_stores"] or rep["ptxas"]["spill_loads"]):
+        raise AssertionError(f"{name}'s fixed-width instance {inst} spills or was not reported "
+                             f"by ptxas: {rep['ptxas']}")
+    return rep
+
+
+def fwd_entry(x, theta, dims, w0: float, errs: list, card: str, label: str) -> dict:
+    """siren_fwd (one sample per block, the main path's launch) held against
+    its plain version, its and the plain version's gaps to an f64 evaluation
+    and their ratio reported, timed, with its bound and its instance;
+    appends its disagreement to ``errs``."""
+    B, P = x.shape[:2]
+    ref = fused_inr.siren_forward_reference(x, theta, dims, w0)
+    got = fused_inr.siren_forward(x, theta, dims, w0, samples_per_block=1)
     torch.cuda.synchronize()
     errs.append(max_err(got, ref))
     gap = f64_gaps(got, ref, fused_inr.siren_forward_reference(x.double(), theta.double(),
-                                                               dims, cfg.w0))
-    fwd = {"shape": [B, P], "widths": list(dims), "max_abs_err": errs[-1],
-           "ms": cuda_ms(lambda: fused_inr.siren_forward(x, theta, dims, cfg.w0, 1), 50),
-           "plain_ms": cuda_ms(
-               lambda: fused_inr.siren_forward_reference(x, theta, dims, cfg.w0), 20)}
+                                                               dims, w0))
+    rep = instance_report("siren_fwd", dims, B, P)
+    fwd = {"shape": [B, P], "widths": list(dims), "max_abs_err": errs[-1], "f64_gaps": gap,
+           "f64_ratio": gap[0] / gap[1],
+           "ms": cuda_ms(lambda: fused_inr.siren_forward(x, theta, dims, w0, 1), 50),
+           "plain_ms": cuda_ms(lambda: fused_inr.siren_forward_reference(x, theta, dims, w0), 20),
+           **rep}
     flops, nbytes = fwd_work(x, theta, dims)
     fwd["bound_ms"], fwd["bound_by"], route, _ = bounds(flops, nbytes)
-    print(f"{label} siren_fwd B={B} P={P} widths {list(dims)}: max abs diff {errs[-1]:.3e} "
+    plan = rep["plan"]
+    print(f"{label} siren_fwd B={B} P={P} widths {list(dims)}: instance {rep['instance']} "
+          f"({plan['pixels_per_block']} pixels a block, {plan['blocks']} blocks, "
+          f"{plan['blocks_per_sm']} per SM; ptxas {rep['ptxas']}); max abs diff {errs[-1]:.3e} "
           f"(atol {ATOL}, rtol {RTOL}); vs an f64 evaluation {gap[0]:.3e} kernel, {gap[1]:.3e} "
-          f"plain version; {fwd['ms']:.4f} ms, plain version {fwd['plain_ms']:.4f} ms, bound "
+          f"plain version (ratio {fwd['f64_ratio']:.3f}); {fwd['ms']:.4f} ms, plain version "
+          f"{fwd['plain_ms']:.4f} ms, bound "
           f"{fwd['bound_ms']:.4f} ms by {fwd['bound_by']} ({flops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB; operations term {route}) [{card}]")
-    del x, theta, ref, got
-    B = B * S
-    xb, thetab = kernel_inputs(art, B, P, gen)
-    dyb = torch.randn(B, P, cfg.output_dim, generator=gen, device="cuda")
-    got = fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0)
-    again = fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0)
+    return fwd
+
+
+def bwd_entry(x, theta, dy, dims, w0: float, bwd_errs: list, card: str, label: str) -> dict:
+    """siren_bwd held against its plain version (two launches bitwise
+    equal), its and the plain version's gaps to an f64 evaluation and their
+    ratios reported, timed, with its bound and its instance; appends its
+    disagreements to ``bwd_errs``."""
+    B, P = x.shape[:2]
+    got = fused_inr.siren_backward(x, theta, dy, dims, w0)
+    again = fused_inr.siren_backward(x, theta, dy, dims, w0)
     torch.cuda.synchronize()
     if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
         raise AssertionError(f"two {label} siren_bwd launches at P={P} differ")
-    refs = fused_inr.siren_backward_reference(xb, thetab, dyb, dims, cfg.w0)
+    refs = fused_inr.siren_backward_reference(x, theta, dy, dims, w0)
     e = (max_err_of_max(got[0], refs[0], "dx"), max_err_of_max(got[1], refs[1], "dtheta"))
     bwd_errs += e
-    ref64 = fused_inr.siren_backward_reference(xb.double(), thetab.double(), dyb.double(),
-                                               dims, cfg.w0)
+    ref64 = fused_inr.siren_backward_reference(x.double(), theta.double(), dy.double(), dims, w0)
     gaps = [f64_gaps(k, r, r64) for k, r, r64 in zip(got, refs, ref64)]
     del ref64, refs, again
-    bwd = {"shape": [B, P], "widths": list(dims), "max_abs_err": max(e),
-           "ms": cuda_ms(lambda: fused_inr.siren_backward(xb, thetab, dyb, dims, cfg.w0), 10),
+    rep = instance_report("siren_bwd", dims, B, P)
+    bwd = {"shape": [B, P], "widths": list(dims), "max_abs_err": max(e), "f64_gaps": gaps,
+           "f64_ratio": max(k / p for k, p in gaps),
+           "ms": cuda_ms(lambda: fused_inr.siren_backward(x, theta, dy, dims, w0), 10),
            "plain_ms": cuda_ms(lambda: fused_inr.siren_backward_reference(
-               xb, thetab, dyb, dims, cfg.w0), 3, 1)}
-    flops, nbytes = bwd_work(xb, thetab, dyb, dims)
+               x, theta, dy, dims, w0), 3, 1), **rep}
+    flops, nbytes = bwd_work(x, theta, dy, dims)
     bwd["bound_ms"], bwd["bound_by"], route, _ = bounds(flops, nbytes)
-    print(f"{label} siren_bwd B={B} P={P} widths {list(dims)}: max abs diff dx {e[0]:.3e}, "
+    plan = rep["plan"]
+    print(f"{label} siren_bwd B={B} P={P} widths {list(dims)}: instance {rep['instance']} "
+          f"({plan['warps_per_block']} warps, {plan['smem_bytes_per_block']} bytes a block, "
+          f"{plan['blocks_per_sm']} per SM; ptxas {rep['ptxas']}); max abs diff dx {e[0]:.3e}, "
           f"dtheta {e[1]:.3e} (tolerance {BWD_OF_MAX} of the largest entry); two launches "
           f"bitwise equal; vs an f64 evaluation dx {gaps[0][0]:.3e} kernel, {gaps[0][1]:.3e} "
-          f"plain, dtheta {gaps[1][0]:.3e} kernel, {gaps[1][1]:.3e} plain; {bwd['ms']:.4f} ms, "
+          f"plain, dtheta {gaps[1][0]:.3e} kernel, {gaps[1][1]:.3e} plain (larger ratio "
+          f"{bwd['f64_ratio']:.3f}); {bwd['ms']:.4f} ms, "
           f"plain version {bwd['plain_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms by "
           f"{bwd['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; operations term "
           f"{route}) [{card}]")
+    return bwd
+
+
+def kernel_checks(art, B: int, S: int, gen, card: str, errs: list, bwd_errs: list,
+                  label: str, encode_fwd: bool = False):
+    """siren_fwd at decode's B and siren_bwd at the encode's B * S, at the
+    config's P and widths, each held against its plain version (two
+    siren_bwd launches bitwise equal), its gap to an f64 evaluation beside
+    the plain version's, timed, with its bound and the instance it runs on;
+    with ``encode_fwd`` siren_fwd at B * S too (its entry's "encode").
+    Appends the disagreements to ``errs`` and ``bwd_errs``; returns the two
+    kernels' entries."""
+    cfg = art.config
+    dims, P = cfg.net_dims, cfg.n_pixels
+    x, theta = kernel_inputs(art, B, P, gen)
+    fwd = fwd_entry(x, theta, dims, cfg.w0, errs, card, label)
+    del x, theta
+    xb, thetab = kernel_inputs(art, B * S, P, gen)
+    dyb = torch.randn(B * S, P, cfg.output_dim, generator=gen, device="cuda")
+    bwd = bwd_entry(xb, thetab, dyb, dims, cfg.w0, bwd_errs, card, label)
+    if encode_fwd:
+        fwd["encode"] = fwd_entry(xb, thetab, dims, cfg.w0, errs, card, f"{label} encode's")
     return fwd, bwd
+
+
+def instance_rows(name: str, cifar: dict, paths: dict, train_shapes: dict,
+                  runtime: dict) -> list:
+    """Every instance of kernel ``name`` that the run timed, one row per
+    shape: where, instance, widths, shape, times, bound, ptxas."""
+    entries = [("cifar", cifar)]
+    for where, c in {**paths, **train_shapes}.items():
+        e = c[name]
+        entries.append((where, e))
+        if "encode" in e:
+            entries.append((f"{where} encode", e["encode"]))
+    entries += [("run-time tiny", runtime[name]), ("run-time 64-64-40-7", runtime[name]["wide"])]
+    keys = ("instance", "widths", "shape", "ms", "plain_ms", "bound_ms", "bound_by", "f64_ratio",
+            "ptxas")
+    return [{"where": where, **{k: e[k] for k in keys}} for where, e in entries]
+
+
+def runtime_instance_checks(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
+    """The run-time-width instance (no full-size path runs it): TINY's
+    widths 32-8-8-3 at B = 500 (siren_fwd) and 2,500 (siren_bwd), P = 256,
+    on a TINY prior from ``seed``, timed, and 64-64-40-7 at B = 64, P = 1,000;
+    each held against its plain version at the smoke's tolerances, with its
+    and the plain version's gaps to an f64 evaluation printed. Returns the
+    two kernels' TINY entries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    fwd, bwd = kernel_checks(make_artifact(TINY, seed), 500, SAMPLE_SIZE, gen, card, errs,
+                             bwd_errs, "TINY (run-time instance)")
+    dims = [64, 64, 40, 7]
+    x = torch.randn(64, 1000, dims[0], generator=gen, device="cuda")
+    theta = 0.05 * torch.randn(64, fused_inr.theta_size(dims), generator=gen, device="cuda")
+    dy = torch.randn(64, 1000, dims[-1], generator=gen, device="cuda")
+    fwd["wide"] = fwd_entry(x, theta, dims, 30.0, errs, card, "64-64-40-7")
+    bwd["wide"] = bwd_entry(x, theta, dy, dims, 30.0, bwd_errs, card, "64-64-40-7")
+    return {"siren_fwd": fwd, "siren_bwd": bwd}
 
 
 def export_checks(art, idx, y: torch.Tensor, label: str) -> dict:
@@ -876,7 +983,7 @@ def export_checks(art, idx, y: torch.Tensor, label: str) -> dict:
 def config_phases(cfg, data, seed: int, card: str, errs: list, bwd_errs: list, label: str,
                   small_bwd: bool = False, remat: bool = False, resume: bool = False,
                   stack_check: bool = False, media: bool = False, modes: bool = False,
-                  flags: bool = False) -> dict:
+                  flags: bool = False, instances: bool = False) -> dict:
     """The phases of one configuration at its full geometry (S = 5) on a
     random prior of its shapes from ``seed`` (``make_artifact``: no trained
     prior is read) and the datapoints ``data``: both kernels at its shapes,
@@ -887,7 +994,8 @@ def config_phases(cfg, data, seed: int, card: str, errs: list, bwd_errs: list, l
     bit); with ``resume`` a crash at the first level-h snapshot resumed;
     with ``media`` the export; with ``modes`` epoch_s under each precision
     mode (``by_mode``); with ``flags`` the TF32 flags at every product of
-    the encode, by part (``FlagRecorder``). The encode and the epochs run
+    the encode, by part (``FlagRecorder``); with ``instances`` siren_fwd at
+    the encode's B * S too. The encode and the epochs run
     at the ambient precision, as a user's; decode is exact in every mode.
     Appends the kernels' disagreements to ``errs`` and ``bwd_errs``;
     returns the numbers the kernels line and the summary print."""
@@ -905,8 +1013,8 @@ def config_phases(cfg, data, seed: int, card: str, errs: list, bwd_errs: list, l
           + f" ({time.perf_counter() - t0:.2f} s)")
 
     with phase(f"{label} kernels"), exact_f32():
-        out["siren_fwd"], out["siren_bwd"] = kernel_checks(art, R, S, gen, card, errs,
-                                                           bwd_errs, label)
+        out["siren_fwd"], out["siren_bwd"] = kernel_checks(
+            art, R, S, gen, card, errs, bwd_errs, label, encode_fwd=instances)
         if small_bwd:
             # kodak_mini's one image at S = 5 is 20 one-sample blocks on 132 SMs
             bwd = out["siren_bwd"]
@@ -1166,13 +1274,15 @@ def modality_phases(seed: int, card: str, errs: list, bwd_errs: list) -> dict:
     held against the plain one, remat off/on/on/off (the epochs repeat bit
     for bit), a crash at level h resumed and epoch_s under each precision
     mode; audio's encode with its TF32 flags recorded (the per-modality
-    auto: exact finetunes)."""
+    auto: exact finetunes) and its epoch_s under each precision mode;
+    audio's and video's kernels on their own fixed-width instances,
+    siren_fwd at the encode's B * S too."""
     return {
         "audio": config_phases(AUDIO, audio_data(seed), seed, card, errs, bwd_errs, "Audio",
-                               media=True, flags=True),
+                               media=True, flags=True, modes=True, instances=True),
         "video": config_phases(VIDEO, video_data(seed), seed, card, errs, bwd_errs, "Video",
                                stack_check=True, remat=True, resume=True, media=True,
-                               modes=True),
+                               modes=True, instances=True),
         "protein": config_phases(PROTEIN, protein_data(seed), seed, card, errs, bwd_errs,
                                  "Protein", media=True),
     }
@@ -2454,6 +2564,8 @@ def precision_modes(codec, state0, X, Y, art, idx, res, seed: int, card: str, ko
         f"Kodak epoch_s (R={kodak['rows']}, S={SAMPLE_SIZE})": kodak["encode"]["epoch_s_by_mode"],
         f"Video epoch_s (R={modalities['video']['rows']}, S={SAMPLE_SIZE})":
             modalities["video"]["encode"]["epoch_s_by_mode"],
+        f"Audio epoch_s (R={modalities['audio']['rows']}, S={SAMPLE_SIZE})":
+            modalities["audio"]["encode"]["epoch_s_by_mode"],
         f"train_epoch_s (CIFAR R={TRAIN_ROWS}, S=1)": train["timing"]["train_epoch_s_by_mode"],
     }
     print("host clock around 10 warm epochs, synchronised; each mode twice, in turns ambient, "
@@ -2589,9 +2701,13 @@ def main(argv=None) -> int:
             for line in built.log.splitlines():
                 if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
                     print("  " + line.strip())
-        plans = {name: launch_plan(name, list(dims)) for name in ("siren_fwd", "siren_bwd")}
-        for name, plan in plans.items():
-            print(f"{name} launch plan at widths {list(dims)}: {plan}; design: {DESIGN[name]}")
+            for inst, regs in ptxas_by_instance(built.log).items():
+                print(f"  {name} instance {inst}: {regs}")
+        for name in ("siren_fwd", "siren_bwd"):
+            print(f"{name} design: {DESIGN[name]}")
+            for c in (CIFAR, AUDIO, VIDEO, TINY):
+                print(f"  launch plan at {c.name}'s widths {list(c.net_dims)}: "
+                      f"{fused_inr.launch_plan(name, list(c.net_dims))}")
 
     art = make_cifar_artifact(args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -2608,6 +2724,7 @@ def main(argv=None) -> int:
             if spb == 1:
                 gap = f64_gaps(got, ref, fused_inr.siren_forward_reference(
                     x.double(), theta.double(), dims, cfg.w0))
+                cifar_fwd_ratio = gap[0] / gap[1]
                 print(f"  vs an f64 evaluation: max abs diff over the largest entry {gap[0]:.3e} "
                       f"kernel, {gap[1]:.3e} plain version")
         x3, theta3 = kernel_inputs(art, 3, 1000, gen)
@@ -2650,6 +2767,7 @@ def main(argv=None) -> int:
                 ref64 = fused_inr.siren_backward_reference(
                     xc.double(), tc.double(), dyc.double(), dims, cfg.w0)
                 gaps = [f64_gaps(k, r, r64) for k, r, r64 in zip(got, (ref_dx, ref_dtheta), ref64)]
+                cifar_bwd_ratio = max(k / p for k, p in gaps)
                 del ref64
                 print(f"B={xc.shape[0]} P={xc.shape[1]} vs an f64 evaluation: max abs diff over "
                       f"the largest entry, dx {gaps[0][0]:.3e} kernel, {gaps[0][1]:.3e} plain; "
@@ -2657,6 +2775,9 @@ def main(argv=None) -> int:
         # freed here and drawn again for the timings, so that decode's peak
         # memory below counts what it counted before this phase existed
         del ref_dx, ref_dtheta, got, again, cases, xb, thetab, dyb
+
+    with phase("run-time-width instance vs plain version"), exact_f32():
+        runtime = runtime_instance_checks(args.seed, card, errs, bwd_errs)
 
     with phase("decode slice"):
         codec, state0 = init_codec(art, N_ROWS)
@@ -2752,6 +2873,9 @@ def main(argv=None) -> int:
         print(f"plain version (torch.baddbmm + sin): {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
               f"by {bound_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; operations term "
               f"{ops_route}); FP32-FMA bound {fma_bound_ms:.4f} ms [{card}]")
+        cifar_fwd = {"shape": [N_ROWS, P], "widths": list(dims), "ms": ms[1],
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "f64_ratio": cifar_fwd_ratio, **instance_report("siren_fwd", dims, N_ROWS, P)}
 
         decode(codec, idx, X, cfg)
         torch.cuda.synchronize()
@@ -2779,6 +2903,13 @@ def main(argv=None) -> int:
               f"{bwd_bound_ms:.4f} ms by {bwd_bound_by} ({bwd_flops / 1e9:.3f} GFLOP, "
               f"{bwd_bytes / 1e6:.2f} MB; operations term {bwd_ops_route}); FP32-FMA bound "
               f"{bwd_fma_bound_ms:.4f} ms [{card}]")
+        cifar_bwd = {"shape": [B_enc, P], "widths": list(dims), "ms": bwd_ms,
+                     "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
+                     "bound_by": bwd_bound_by, "f64_ratio": cifar_bwd_ratio,
+                     **instance_report("siren_bwd", dims, B_enc, P)}
+        print(f"instances at CIFAR's widths: siren_fwd {cifar_fwd['instance']} (ptxas "
+              f"{cifar_fwd['ptxas']}), siren_bwd {cifar_bwd['instance']} (ptxas "
+              f"{cifar_bwd['ptxas']})")
         del xb, thetab, dyb
 
         # S = 5 epochs at R = 500 from the fresh state, as phase 1 runs them
@@ -2997,6 +3128,8 @@ def main(argv=None) -> int:
         "bound_route": ops_route if bound_by == "operations" else "HBM",
         "fp32_fma_bound_ms": fma_bound_ms,
         "library_ms": None,
+        "instance": cifar_fwd["instance"],
+        "instances": instance_rows("siren_fwd", cifar_fwd, paths, train_shapes, runtime),
         **{name: c["siren_fwd"] for name, c in paths.items()},
         **{name: c["siren_fwd"] for name, c in train_shapes.items()},
     }, {
@@ -3020,6 +3153,8 @@ def main(argv=None) -> int:
         "bound_route": bwd_ops_route if bwd_bound_by == "operations" else "HBM",
         "fp32_fma_bound_ms": bwd_fma_bound_ms,
         "library_ms": None,
+        "instance": cifar_bwd["instance"],
+        "instances": instance_rows("siren_bwd", cifar_bwd, paths, train_shapes, runtime),
         **{name: c["siren_bwd"] for name, c in paths.items()},
         **{name: c["siren_bwd"] for name, c in train_shapes.items()},
     }]
@@ -3089,6 +3224,12 @@ def main(argv=None) -> int:
               f"{r[mode]['epoch_collective_ms']['gathers']:.3f} ms)"
               for r in kodak2["ranks"] for mode in SCALE_MODES)
           + f" (one shared card, not a scale-out speed) [{card}]")
+    for k in kernels:
+        for r in k["instances"]:
+            print(f"{k['name']} instance {r['instance']} at {r['where']} B={r['shape'][0]} "
+                  f"P={r['shape'][1]}: {r['ms']:.4f} ms, plain version {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}; gap to f64 "
+                  f"{r['f64_ratio']:.3f} times the plain version's; ptxas {r['ptxas']} [{card}]")
     print(f"total: {time.perf_counter() - t_all:.2f} s [{card}]")
     print(json.dumps({"scale_out": scale_out}))
     print(json.dumps({"precision_modes": modes}))

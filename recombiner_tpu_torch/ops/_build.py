@@ -40,7 +40,8 @@ BUILD_TIMEOUT_S = 300
 class Built:
     path: str
     seconds: float  # 0.0 when the library was already built
-    log: str  # nvcc's output, including ptxas' register / smem / spill lines
+    log: str  # nvcc's output, including ptxas' register / smem / spill lines (kept
+    # beside the library as <library>.log, and read back when it was already built)
 
 
 _lock = threading.Lock()
@@ -126,6 +127,9 @@ def build_sources(srcs: List[str]) -> Dict[str, Built]:
                     if proc.returncode != 0:
                         raise RuntimeError(
                             f"nvcc failed ({proc.returncode}) building {src}:\n{log}")
+                    with open(f"{tmp}.log", "w") as f:
+                        f.write(log)
+                    os.replace(f"{tmp}.log", f"{so}.log")
                     os.replace(tmp, so)
                     _built[src] = Built(so, time.perf_counter() - t0, log)
             finally:
@@ -136,7 +140,12 @@ def build_sources(srcs: List[str]) -> Dict[str, Built]:
                     if os.path.exists(todo[so][1]):
                         os.remove(todo[so][1])
         for src, so in so_of.items():  # already built, or sharing another's library
-            _built.setdefault(src, Built(so, 0.0, ""))
+            if src not in _built:
+                log = ""
+                if os.path.exists(f"{so}.log"):
+                    with open(f"{so}.log") as f:
+                        log = f.read()
+                _built[src] = Built(so, 0.0, log)
         return {src: _built[src] for src in srcs}
 
 

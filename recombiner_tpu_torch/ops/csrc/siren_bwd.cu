@@ -47,8 +47,11 @@
 // - Barriers per tile: one after the copy, one after the forward, one per
 //   layer of the backward (its dW reads the tiles the other warps wrote):
 //   six at CIFAR's four layers.
-// - Two instances: CIFAR's widths fixed at compile time, and widths read at
-//   run time, up to 64 in up to 8 layers.
+// - Instances (siren_mma.cuh): one per width set a modality config runs,
+//   every width a compile-time constant (CIFAR's 32-32-32-32-3, audio's
+//   32-32-32-32-1, video's 34-32-32-32-3), and one for widths read at run
+//   time, up to 64 in up to 8 layers, which spills and serves only the
+//   TINY configs and arbitrary widths.
 //
 // Shared memory at CIFAR widths (32-32-32-32-3), 64-pixel tiles: 106,528
 // bytes (weights 15.8 KB, accumulator 15.0 KB, two x, two dy and two dz
@@ -56,7 +59,12 @@
 // blocks would need under 56 KB each: the activation and dz tiles that the
 // transposed dW operands are read from take 700 bytes per pixel, and eight
 // warps per block would double them. Registers: 121 (ptxas), of which the
-// w0 cos terms of three hidden layers take 48.
+// w0 cos terms of three hidden layers take 48. At video's widths the
+// 34-wide input grows the weights (layer 0 has 40 padded rows) and dW_0's
+// accumulator (three 16-row blocks: 12 tiles, not 8), but its x tiles keep
+// a 40-float stride, because dW_0's third row block reads only its lower 8
+// rows (34 <= 40), so the block needs 109,728 bytes: still two per SM.
+// x and dx rows of 34 floats move as 8-byte copies.
 //
 // Precision: 3xTF32 products and f32 sums (see siren_mma.cuh: at CIFAR its
 // gaps to an f64 evaluation are 1.3 to 1.4 times the f32 plain version's),
@@ -117,7 +125,7 @@ static BwdLayout bwd_layout(const SirenDims& dims, int warps, bool acc_in_smem) 
     lay.dbp[l] = off;
     off += round8(dims.d[l + 1]) * 4;
   }
-  lay.sx = wide_stride(dims.d[0]);
+  lay.sx = frag_stride(dims.d[0]);
   lay.sdy = frag_stride(dims.d[L]);
   lay.sz = sz;
   for (int b = 0; b < 2; ++b) {
@@ -129,7 +137,7 @@ static BwdLayout bwd_layout(const SirenDims& dims, int warps, bool acc_in_smem) 
     off += T * lay.sz;
   }
   for (int l = 1; l < L; ++l) {
-    lay.sa[l] = wide_stride(dims.d[l]);
+    lay.sa[l] = frag_stride(dims.d[l]);
     lay.act[l] = off;
     off += T * lay.sa[l];
   }
@@ -141,7 +149,9 @@ static BwdLayout bwd_layout(const SirenDims& dims, int warps, bool acc_in_smem) 
 // owns: A rows a_l (stride sA), Z rows dz_l (stride sZ). Warp w owns the
 // 8-column blocks nt = w, w + warps, ... of dW_l with all their 16-row
 // blocks, so each dz fragment is loaded and split once for all of them and
-// their MT products run side by side, each into its two accumulators.
+// their MT products run side by side, each into its two accumulators. A
+// row block whose upper 8 rows lie wholly past `in` reads only its lower 8
+// (the tiles hold round8(in) columns; the upper rows are zero and dropped).
 template <int MT>
 __device__ __forceinline__ void dw_tile(const float* A, int sA, const float* Z, int sZ, int in,
                                         int out, int T, int warp, int warps, int lane,
@@ -170,9 +180,13 @@ __device__ __forceinline__ void dw_tile(const float* A, int sA, const float* Z, 
           const float* ar = A + (kk + t) * sA + 16 * mt + g;
           uint32_t ahi[4], alo[4];
           split_tf32(ar[0], ahi[0], alo[0]);
-          split_tf32(ar[8], ahi[1], alo[1]);
           split_tf32(ar[4 * sA], ahi[2], alo[2]);
-          split_tf32(ar[4 * sA + 8], ahi[3], alo[3]);
+          if (16 * mt + 8 < in) {
+            split_tf32(ar[8], ahi[1], alo[1]);
+            split_tf32(ar[4 * sA + 8], ahi[3], alo[3]);
+          } else {
+            ahi[1] = alo[1] = ahi[3] = alo[3] = 0u;
+          }
           mma_3xtf32(big[mt], small[mt], ahi, alo, bhi, blo);
         }
       }
@@ -207,21 +221,21 @@ __device__ __forceinline__ void dw_tile(const float* A, int sA, const float* Z, 
   }
 }
 
-template <int MAXW, int MAXL, int IN0 = 0, int HID = 0, int OUT = 0>
+template <class I>
 __global__ void __launch_bounds__(BWD_MAX_WARPS * 32)
 siren_bwd_kernel(const float* __restrict__ x, const float* __restrict__ theta,
                  const float* __restrict__ dy, float* __restrict__ dx,
                  float* __restrict__ dtheta, int P, int theta_stride, SirenDims dims,
-                 BwdLayout lay, float w0, int x_vec4, int dy_vec4) {
-  constexpr int NT = MAXW / 8;
+                 BwdLayout lay, float w0, int x_vec, int dy_vec) {
+  constexpr int NT = I::NT, MAXL = I::layers;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid >> 5, warps = nthreads >> 5, lane = tid & 31;
   const int T = 16 * warps;
   const int s = blockIdx.x;
-  const Widths<MAXL, IN0, HID, OUT> W{dims};
-  const int L = W.layers(), in0 = W[0], outL = W[L];
+  const I W{dims};
+  const int L = W.n_layers(), in0 = W[0], outL = W[L];
 
   // pads, accumulators and tiles start at zero; staging writes every weight
   for (int i = lay.zero_from + tid; i < lay.total; i += nthreads) smem[i] = 0.f;
@@ -234,17 +248,17 @@ siren_bwd_kernel(const float* __restrict__ x, const float* __restrict__ theta,
   float* dth = dtheta + (size_t)s * theta_stride;
   const int n_tiles = (P + T - 1) / T;
 
-  copy_rows_async(smem + lay.xb[0], lay.sx, xs, in0, T, P, x_vec4, tid, nthreads);
-  copy_rows_async(smem + lay.dyb[0], lay.sdy, dys, outL, T, P, dy_vec4, tid, nthreads);
+  copy_rows_async(smem + lay.xb[0], lay.sx, xs, in0, T, P, x_vec, tid, nthreads);
+  copy_rows_async(smem + lay.dyb[0], lay.sdy, dys, outL, T, P, dy_vec, tid, nthreads);
   cp_async_commit();
   for (int it = 0; it < n_tiles; ++it) {
     const int cur = it & 1, p0 = it * T;
     if (it + 1 < n_tiles) {
       const int p1 = p0 + T;
       copy_rows_async(smem + lay.xb[cur ^ 1], lay.sx, xs + (size_t)p1 * in0, in0, T, P - p1,
-                      x_vec4, tid, nthreads);
+                      x_vec, tid, nthreads);
       copy_rows_async(smem + lay.dyb[cur ^ 1], lay.sdy, dys + (size_t)p1 * outL, outL, T,
-                      P - p1, dy_vec4, tid, nthreads);
+                      P - p1, dy_vec, tid, nthreads);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -293,14 +307,14 @@ siren_bwd_kernel(const float* __restrict__ x, const float* __restrict__ theta,
           __syncwarp();
           const int pw = p0 + 16 * warp, rows = min(16, P - pw);
           if (rows > 0)
-            store_rows(dxs + (size_t)pw * in0, zt, lay.sz, in0, rows, x_vec4, lane, 32);
+            store_rows(dxs + (size_t)pw * in0, zt, lay.sz, in0, rows, x_vec, lane, 32);
         }
         // dW_l, db_l over the tile, reading the shared a_l and dz_l tiles
         const float* A = smem + (l == 0 ? lay.xb[cur] : lay.act[l]);
         const int sA = l == 0 ? lay.sx : lay.sa[l];
         const float* Z = smem + (l == L - 1 ? lay.dyb[cur] : lay.dzb[l & 1]);
         const int sZ = l == L - 1 ? lay.sdy : lay.sz;
-        dw_tile<MAXW / 16>(A, sA, Z, sZ, in, out, T, warp, warps, lane,
+        dw_tile<I::MT>(A, sA, Z, sZ, in, out, T, warp, warps, lane,
                            lay.acc >= 0 ? smem + lay.acc + 128 * lay.tile0[l] : nullptr,
                            smem + lay.dbp[l], dth + lay.g_off[l], it == 0);
         __syncthreads();  // dz_l and a_l are free; dz_{l-1} is in
@@ -333,10 +347,10 @@ siren_bwd_kernel(const float* __restrict__ x, const float* __restrict__ theta,
   }
 }
 
-template <int MAXW, int MAXL, int... FIX>
+template <class I>
 static cudaError_t allow_smem(size_t smem) {
   return smem > 48 * 1024
-             ? cudaFuncSetAttribute(siren_bwd_kernel<MAXW, MAXL, FIX...>,
+             ? cudaFuncSetAttribute(siren_bwd_kernel<I>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
              : cudaSuccess;
 }
@@ -353,54 +367,42 @@ static int plan(const SirenDims& dims, BwdLayout& lay) {
   return 0;
 }
 
-template <int MAXW, int MAXL, int... FIX>
-static cudaError_t launch(const float* x, const float* theta, const float* dy, float* dx,
-                          float* dtheta, int B, int P, int theta_stride, const SirenDims& dims,
-                          const BwdLayout& lay, float w0, int threads, int x_vec4, int dy_vec4,
-                          cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)lay.total;
-  cudaError_t e = allow_smem<MAXW, MAXL, FIX...>(smem);
-  if (e != cudaSuccess) return e;
-  siren_bwd_kernel<MAXW, MAXL, FIX...><<<B, threads, smem, stream>>>(
-      x, theta, dy, dx, dtheta, P, theta_stride, dims, lay, w0, x_vec4, dy_vec4);
-  return cudaGetLastError();
-}
-
 // x (B, P, dims[0]), theta (B, theta_stride), dy (B, P, dims[n_layers]) in;
 // dx (B, P, dims[0]) and dtheta (B, theta_stride) out; all f32 and contiguous
-// on the device; dims is a host array of n_layers + 1 widths. Launches on
-// `stream` and returns cudaGetLastError() (0 = launched). With B or P zero
-// nothing is launched and nothing is written.
+// on the device; dims is a host array of n_layers + 1 widths; instance is the
+// one these widths take (siren_mma.cuh's table; a launch that names another
+// is refused). Launches on `stream` and returns cudaGetLastError() (0 =
+// launched). With B or P zero nothing is launched and nothing is written.
 extern "C" int siren_bwd(const void* x, const void* theta, const void* dy, void* dx,
                          void* dtheta, int B, int P, int n_layers, const void* dims_host,
-                         int theta_stride, float w0, void* stream) {
+                         int theta_stride, float w0, int instance, void* stream) {
   SirenDims dims;
   if (!read_dims(n_layers, dims_host, dims) || B < 0 || P < 0 ||
-      theta_stride < theta_floats(dims))
+      theta_stride < theta_floats(dims) || instance != siren_instance(dims))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || P == 0) return (int)cudaSuccess;
   BwdLayout lay;
   const int warps = plan(dims, lay);
   if (!warps) return (int)cudaErrorInvalidValue;
-  const int x_vec4 = (dims.d[0] % 4 == 0) && ((uintptr_t)x % 16 == 0) && ((uintptr_t)dx % 16 == 0);
-  const int dy_vec4 = (dims.d[n_layers] % 4 == 0) && ((uintptr_t)dy % 16 == 0);
+  const int x_vec = row_vec(dims.d[0], x, dx), dy_vec = row_vec(dims.d[n_layers], dy, dy);
+  const size_t smem = sizeof(float) * (size_t)lay.total;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* tf = static_cast<const float*>(theta);
-  const float* dyf = static_cast<const float*>(dy);
-  float* dxf = static_cast<float*>(dx);
-  float* dtf = static_cast<float*>(dtheta);
-  return (int)(cifar_widths(dims)
-                    ? launch<32, 4, 32, 32, 3>(xf, tf, dyf, dxf, dtf, B, P, theta_stride, dims,
-                                               lay, w0, 32 * warps, x_vec4, dy_vec4, st)
-                    : launch<64, 8>(xf, tf, dyf, dxf, dtf, B, P, theta_stride, dims, lay, w0,
-                                    32 * warps, x_vec4, dy_vec4, st));
+  return (int)with_instance(instance, [&](auto inst) {
+    using I = decltype(inst);
+    cudaError_t e = allow_smem<I>(smem);
+    if (e != cudaSuccess) return e;
+    siren_bwd_kernel<I><<<B, 32 * warps, smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(theta),
+        static_cast<const float*>(dy), static_cast<float*>(dx), static_cast<float*>(dtheta), P,
+        theta_stride, dims, lay, w0, x_vec, dy_vec);
+    return cudaGetLastError();
+  });
 }
 
 // The launch plan for these widths, for reports: out[0] warps per block,
 // out[1] dynamic shared memory per block in bytes, out[2] blocks resident
-// per SM, out[3] 1 if the dW accumulator is in shared memory. Returns a
-// cudaError_t.
+// per SM, out[3] 1 if the dW accumulator is in shared memory, out[4] the
+// instance. Returns a cudaError_t.
 extern "C" int siren_bwd_plan(int n_layers, const void* dims_host, int* out) {
   SirenDims dims;
   if (!read_dims(n_layers, dims_host, dims)) return (int)cudaErrorInvalidValue;
@@ -408,14 +410,17 @@ extern "C" int siren_bwd_plan(int n_layers, const void* dims_host, int* out) {
   const int warps = plan(dims, lay);
   if (!warps) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)lay.total;
-  const bool cifar = cifar_widths(dims);
-  cudaError_t e = cifar ? allow_smem<32, 4, 32, 32, 3>(smem) : allow_smem<64, 8>(smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[2], cifar ? siren_bwd_kernel<32, 4, 32, 32, 3> : siren_bwd_kernel<64, 8>,
-        32 * warps, smem);
+  const int instance = siren_instance(dims);
   out[0] = warps;
   out[1] = (int)smem;
   out[3] = lay.acc >= 0;
-  return (int)e;
+  out[4] = instance;
+  return (int)with_instance(instance, [&](auto inst) {
+    using I = decltype(inst);
+    cudaError_t e = allow_smem<I>(smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], siren_bwd_kernel<I>,
+                                                        32 * warps, smem);
+    return e;
+  });
 }

@@ -15,11 +15,18 @@
 // across pixels):
 // - A block of four warps owns a sample (or a group of samples) and a chunk
 //   of up to 1,024 / samples_per_block pixels. It stages each sample's
-//   weights in shared memory once (in the CIFAR instance split into TF32
-//   hi and lo parts in fragment order), and its warps walk the chunk's
+//   weights in shared memory once (in the fixed-width instances split into
+//   TF32 hi and lo parts in fragment order), and its warps walk the chunk's
 //   16-pixel tiles, tile w, w + 4, ... for warp w: at CIFAR one block
 //   covers a whole sample, so its weights are staged once per sample (four
 //   times before).
+// - Where those blocks would leave the card's resident slots (SMs x blocks
+//   per SM) idle, as audio's decode does (B = 60 samples of 800 pixels: 60
+//   blocks on 132 SMs), the chunk shrinks in whole 64-pixel steps (one
+//   16-pixel tile per warp) until the grid fills one wave of slots, if
+//   that lowers the busiest SM's count of 64-pixel block rounds
+//   (fwd_chunk). The forward has no sums across pixels, so the chunk
+//   changes no number.
 // - Each warp runs the chain on its tile in registers: every layer product
 //   is an m16n8k8 3xTF32 tensor-core tile product, the output's C fragment
 //   becomes the next layer's A fragment by the fragment permutation, and
@@ -27,14 +34,16 @@
 //   branch-free path (as accurate as the library's sinf, which w0 = 30
 //   needs: the arguments lie far outside __sinf's accurate range; no
 //   --use_fast_math), so the compiler interleaves a tile's 16 sines.
-// - Two instances: CIFAR's widths fixed at compile time (every guard and
-//   stride a constant, weights staged pre-split), and widths read at run
-//   time, up to 64 in up to 8 layers (weights staged as f32: pre-split
-//   planes at those widths would not fit in shared memory).
+// - Instances (siren_mma.cuh): one per width set a modality config runs
+//   (CIFAR's, audio's and video's, every guard and stride a constant,
+//   weights staged pre-split: 29 KB at video's widths), and one for widths
+//   read at run time, up to 64 in up to 8 layers (weights staged as f32:
+//   pre-split planes at those widths would not fit in shared memory).
 // - x tiles arrive by cp.async, double-buffered per warp: the next tile's
-//   copy (16 rows, one contiguous 2 KB run at CIFAR, 16-byte copies) is in
-//   flight while this one computes. y leaves through a shared staging tile
-//   as coalesced stores of the contiguous 16 x out run.
+//   copy (16 rows, one contiguous 2 KB run at CIFAR, 16-byte copies; 8-byte
+//   copies of video's 34-wide rows) is in flight while this one computes.
+//   y leaves through a shared staging tile as coalesced stores of the
+//   contiguous 16 x out run.
 // - No block barrier inside the pixel loop: a warp only reads what it copied.
 //
 // Bound on the H100 (CIFAR decode, B = 500, P = 1,024, 32-32-32-32-3): 3,168
@@ -62,8 +71,8 @@ struct FwdLayout {
   int total;
 };
 
-// presplit: the weights staged by stage_split_weights (the CIFAR instance),
-// else by stage_weights.
+// presplit: the weights staged by stage_split_weights (the fixed-width
+// instances), else by stage_weights.
 static FwdLayout fwd_layout(const SirenDims& dims, bool presplit) {
   FwdLayout lay = {};
   int off = 0;
@@ -80,19 +89,19 @@ static FwdLayout fwd_layout(const SirenDims& dims, bool presplit) {
   return lay;
 }
 
-template <int MAXW, int MAXL, int IN0 = 0, int HID = 0, int OUT = 0>
+template <class I>
 __global__ void __launch_bounds__(FWD_WARPS * 32, 4)
 siren_fwd_kernel(const float* __restrict__ x, const float* __restrict__ theta,
                  float* __restrict__ y, int B, int P, int theta_stride, SirenDims dims,
-                 FwdLayout lay, float w0, int samples_per_block, int chunk, int x_vec4,
-                 int y_vec4) {
-  constexpr int NT = MAXW / 8;
-  constexpr bool PRESPLIT = IN0 > 0;
+                 FwdLayout lay, float w0, int samples_per_block, int chunk, int x_vec,
+                 int y_vec) {
+  constexpr int NT = I::NT, MAXL = I::layers;
+  constexpr bool PRESPLIT = I::fixed;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const Widths<MAXL, IN0, HID, OUT> W{dims};
-  const int L = W.layers(), in0 = W[0], outL = W[L];
+  const I W{dims};
+  const int L = W.n_layers(), in0 = W[0], outL = W[L];
 
   float* xbuf = smem + lay.bufs + warp * lay.warp_floats;  // two tiles of 16 x sx
   float* ybuf = xbuf + 2 * 16 * lay.sx;
@@ -120,13 +129,13 @@ siren_fwd_kernel(const float* __restrict__ x, const float* __restrict__ theta,
     float* ys = y + ((size_t)s * P + p_begin) * outL;
     if (warp < n_tiles)
       copy_rows_async(xbuf, lay.sx, xs + (size_t)warp * 16 * in0, in0, 16,
-                      n_pix - warp * 16, x_vec4, lane, 32);
+                      n_pix - warp * 16, x_vec, lane, 32);
     cp_async_commit();
     for (int it = warp, k = 0; it < n_tiles; it += FWD_WARPS, ++k) {
       const int next = it + FWD_WARPS;
       if (next < n_tiles)
         copy_rows_async(xbuf + ((k + 1) & 1) * 16 * lay.sx, lay.sx,
-                        xs + (size_t)next * 16 * in0, in0, 16, n_pix - next * 16, x_vec4,
+                        xs + (size_t)next * 16 * in0, in0, 16, n_pix - next * 16, x_vec,
                         lane, 32);
       cp_async_commit();
       cp_async_wait<1>();
@@ -152,7 +161,7 @@ siren_fwd_kernel(const float* __restrict__ x, const float* __restrict__ theta,
       }
       __syncwarp();
       const int rows = min(16, n_pix - it * 16);
-      store_rows(ys + (size_t)it * 16 * outL, ybuf, lay.sy, outL, rows, y_vec4, lane, 32);
+      store_rows(ys + (size_t)it * 16 * outL, ybuf, lay.sy, outL, rows, y_vec, lane, 32);
       __syncwarp();  // this x tile and the y tile are free for the next copies
     }
     cp_async_wait<0>();
@@ -160,71 +169,103 @@ siren_fwd_kernel(const float* __restrict__ x, const float* __restrict__ theta,
   }
 }
 
-template <int MAXW, int MAXL, int... FIX>
+template <class I>
 static cudaError_t allow_smem(size_t smem) {
   return smem > 48 * 1024
-             ? cudaFuncSetAttribute(siren_fwd_kernel<MAXW, MAXL, FIX...>,
+             ? cudaFuncSetAttribute(siren_fwd_kernel<I>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
              : cudaSuccess;
 }
 
-template <int MAXW, int MAXL, int... FIX>
-static cudaError_t launch(const float* x, const float* theta, float* y, int B, int P,
-                          int theta_stride, const SirenDims& dims, const FwdLayout& lay,
-                          float w0, int samples_per_block, int x_vec4, int y_vec4,
-                          cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)lay.total;
-  cudaError_t e = allow_smem<MAXW, MAXL, FIX...>(smem);
-  if (e != cudaSuccess) return e;
+// Pixels per block for `groups` sample groups of P pixels on `sms` SMs of
+// `per_sm` resident blocks each: 1,024 / samples_per_block (at least 64),
+// or, where that grid would leave slots idle, the fewest whole 64-pixel
+// steps whose grid fits one wave of slots, if that lowers the busiest SM's
+// 64-pixel block rounds (ceil(blocks / sms) x ceil(min(chunk, P) / 64)).
+static int fwd_chunk(int groups, int P, int samples_per_block, int sms, int per_sm) {
   int chunk = (FWD_PIXELS_PER_SAMPLE_BLOCK / samples_per_block) & ~15;
   if (chunk < 64) chunk = 64;
-  const dim3 grid((B + samples_per_block - 1) / samples_per_block, (P + chunk - 1) / chunk);
-  siren_fwd_kernel<MAXW, MAXL, FIX...><<<grid, FWD_WARPS * 32, smem, stream>>>(
-      x, theta, y, B, P, theta_stride, dims, lay, w0, samples_per_block, chunk, x_vec4,
-      y_vec4);
-  return cudaGetLastError();
+  const long slots = (long)sms * per_sm;
+  auto blocks = [&](int c) { return (long)groups * ((P + c - 1) / c); };
+  auto rounds = [&](int c) {
+    return (blocks(c) + sms - 1) / sms * (((c < P ? c : P) + 63) / 64);
+  };
+  if (sms < 1 || per_sm < 1 || blocks(chunk) >= slots) return chunk;
+  int c = 64;
+  while (c < chunk && blocks(c) > slots) c += 64;
+  return c < chunk && rounds(c) < rounds(chunk) ? c : chunk;
+}
+
+// The card's SM count and this instance's resident blocks per SM.
+template <class I>
+static cudaError_t residency(size_t smem, int& sms, int& per_sm) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, siren_fwd_kernel<I>,
+                                                      FWD_WARPS * 32, smem);
+  return e;
 }
 
 // x (B, P, dims[0]), theta (B, theta_stride), y (B, P, dims[n_layers]), all
 // f32 and contiguous on the device; dims is a host array of n_layers + 1
-// widths. Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// widths; instance is the one these widths take (siren_mma.cuh's table; a
+// launch that names another is refused). Launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
 extern "C" int siren_fwd(const void* x, const void* theta, void* y, int B, int P,
                          int n_layers, const void* dims_host, int theta_stride, float w0,
-                         int samples_per_block, void* stream) {
+                         int samples_per_block, int instance, void* stream) {
   SirenDims dims;
   if (!read_dims(n_layers, dims_host, dims) || samples_per_block < 1 || B < 0 || P < 0 ||
-      theta_stride < theta_floats(dims))
+      theta_stride < theta_floats(dims) || instance != siren_instance(dims))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || P == 0) return (int)cudaSuccess;
-  const bool cifar = cifar_widths(dims);
-  const FwdLayout lay = fwd_layout(dims, cifar);
-  if (sizeof(float) * (size_t)lay.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  const int x_vec4 = (dims.d[0] % 4 == 0) && ((uintptr_t)x % 16 == 0);
-  const int y_vec4 = (dims.d[n_layers] % 4 == 0) && ((uintptr_t)y % 16 == 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* tf = static_cast<const float*>(theta);
-  float* yf = static_cast<float*>(y);
-  return (int)(cifar ? launch<32, 4, 32, 32, 3>(xf, tf, yf, B, P, theta_stride, dims, lay, w0,
-                                                 samples_per_block, x_vec4, y_vec4, s)
-                      : launch<64, 8>(xf, tf, yf, B, P, theta_stride, dims, lay, w0,
-                                      samples_per_block, x_vec4, y_vec4, s));
+  const FwdLayout lay = fwd_layout(dims, instance != 0);
+  const size_t smem = sizeof(float) * (size_t)lay.total;
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int x_vec = row_vec(dims.d[0], x, x), y_vec = row_vec(dims.d[n_layers], y, y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)with_instance(instance, [&](auto inst) {
+    using I = decltype(inst);
+    int sms = 0, per_sm = 0;
+    cudaError_t e = allow_smem<I>(smem);
+    if (e == cudaSuccess) e = residency<I>(smem, sms, per_sm);
+    if (e != cudaSuccess) return e;
+    const int groups = (B + samples_per_block - 1) / samples_per_block;
+    const int chunk = fwd_chunk(groups, P, samples_per_block, sms, per_sm);
+    const dim3 grid(groups, (P + chunk - 1) / chunk);
+    siren_fwd_kernel<I><<<grid, FWD_WARPS * 32, smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(theta), static_cast<float*>(y),
+        B, P, theta_stride, dims, lay, w0, samples_per_block, chunk, x_vec, y_vec);
+    return cudaGetLastError();
+  });
 }
 
 // The launch plan for these widths, for reports: out[0] warps per block,
 // out[1] dynamic shared memory per block in bytes, out[2] blocks resident
-// per SM. Returns a cudaError_t.
-extern "C" int siren_fwd_plan(int n_layers, const void* dims_host, int* out) {
+// per SM, out[3] the instance, and for B samples of P pixels at
+// samples_per_block, out[4] pixels per block and out[5] blocks. Returns a
+// cudaError_t.
+extern "C" int siren_fwd_plan(int n_layers, const void* dims_host, int B, int P,
+                              int samples_per_block, int* out) {
   SirenDims dims;
-  if (!read_dims(n_layers, dims_host, dims)) return (int)cudaErrorInvalidValue;
-  const bool cifar = cifar_widths(dims);
-  const size_t smem = sizeof(float) * (size_t)fwd_layout(dims, cifar).total;
-  cudaError_t e = cifar ? allow_smem<32, 4, 32, 32, 3>(smem) : allow_smem<64, 8>(smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[2], cifar ? siren_fwd_kernel<32, 4, 32, 32, 3> : siren_fwd_kernel<64, 8>,
-        FWD_WARPS * 32, smem);
+  if (!read_dims(n_layers, dims_host, dims) || B < 1 || P < 1 || samples_per_block < 1)
+    return (int)cudaErrorInvalidValue;
+  const int instance = siren_instance(dims);
+  const size_t smem = sizeof(float) * (size_t)fwd_layout(dims, instance != 0).total;
   out[0] = FWD_WARPS;
   out[1] = (int)smem;
-  return (int)e;
+  out[3] = instance;
+  return (int)with_instance(instance, [&](auto inst) {
+    using I = decltype(inst);
+    int sms = 0;
+    cudaError_t e = allow_smem<I>(smem);
+    if (e == cudaSuccess) e = residency<I>(smem, sms, out[2]);
+    if (e != cudaSuccess) return e;
+    const int groups = (B + samples_per_block - 1) / samples_per_block;
+    out[4] = fwd_chunk(groups, P, samples_per_block, sms, out[2]);
+    out[5] = groups * ((P + out[4] - 1) / out[4]);
+    return e;
+  });
 }

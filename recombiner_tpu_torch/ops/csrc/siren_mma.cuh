@@ -41,8 +41,8 @@
 // 8 kt + 2t + 1 of row 8 nt + g. Activation tiles loaded from memory (x, dy)
 // are read straight into C layout, so every layer uses the one convention.
 //
-// Weights are staged in shared memory once per sample. siren_fwd's CIFAR
-// instance stages them pre-split, hi and lo of each B fragment in fragment
+// Weights are staged in shared memory once per sample. siren_fwd's fixed-width
+// instances stage them pre-split, hi and lo of each B fragment in fragment
 // order, so a B fragment is one conflict-free 16-byte load
 // (layer_forward_presplit). siren_bwd reads each layer both ways (W for the
 // recompute, W^T for da), and hi/lo planes in fragment order for both would
@@ -53,6 +53,20 @@
 // value). With that row stride of 4 (mod 8) floats the forward's B loads are
 // free of bank conflicts; the backward's have two-way conflicts.
 // Widths are padded to multiples of 8 with zeros (34 -> 40, 3 -> 8).
+//
+// Instances. Each kernel is compiled once per width set that a modality
+// config runs (SIREN_FIXED_INSTANCES: CIFAR's 32-32-32-32-3, audio's
+// 32-32-32-32-1, video's 34-32-32-32-3), with every width a template
+// constant, so that every guard, tile count and stride folds; and once for
+// widths read at run time, up to 64 in up to 8 layers (instance 0), which
+// every other width set takes (the TINY configs). A fragment array holds
+// the 8-unit blocks of the instance's widest layer (5 at video's 34-wide
+// input, 4 at 32), but each layer's loops run over the blocks of its own
+// padded width (round8 for units, round16 for dW's row blocks), so a
+// 32-wide layer of video's instance does what CIFAR's does and only layer
+// 0's operands have a fifth block. The run-time instance's arrays are 64
+// wide and 8 deep: it spills (255 registers in siren_bwd) and is several
+// times slower than a fixed one at the same widths (PERF.md §6).
 //
 // Bounds on this card at CIFAR widths and f32 accuracy: siren_fwd is bound
 // by bytes (0.0233 ms at B = 500), siren_bwd by operations as 3xTF32
@@ -105,21 +119,19 @@ static inline int theta_floats(const SirenDims& dims) {
   return n;
 }
 
-static __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
-static __host__ __device__ __forceinline__ int round8(int v) { return (v + 7) & ~7; }
-static __host__ __device__ __forceinline__ int round16(int v) { return (v + 15) & ~15; }
+static __host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+static __host__ __device__ constexpr int round8(int v) { return (v + 7) & ~7; }
+static __host__ __device__ constexpr int round16(int v) { return (v + 15) & ~15; }
 
 // Row stride (floats) of a pixel-major activation tile read as C/A
 // fragments: 8 or 24 (mod 32), so the 8-byte loads and stores of a C
 // fragment and the 4-byte column reads of siren_bwd's dW operands are free
-// of bank conflicts.
+// of bank conflicts. A tile holds round8(d) columns: dW's 16-unit row
+// blocks skip the upper half of a block that lies wholly past d.
 static __host__ __device__ __forceinline__ int frag_stride(int d) {
   const int r = round8(d);
   return (r & 8) ? r : r + 8;
 }
-// The same for a tile that is also dW's A operand, whose 16-unit m-tiles
-// read columns up to round16(d).
-static __host__ __device__ __forceinline__ int wide_stride(int d) { return round16(d) + 8; }
 // Staged weights of one layer: bias row, then round8(in) rows of this stride.
 static __host__ __device__ __forceinline__ int weight_stride(int out) { return round8(out) + 4; }
 static __host__ __device__ __forceinline__ int layer_floats(int in, int out) {
@@ -148,6 +160,12 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src),
                "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(s), "l"(src),
+               "r"(valid ? 8 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
@@ -266,25 +284,69 @@ __device__ __forceinline__ void sin_cos_tile(const float (&z)[NT][4], int nts, f
   }
 }
 
-// Layer widths inside a kernel: fixed at compile time when IN0 > 0 (the
-// instance for CIFAR's 32-32-32-32-3, in which every width guard, tile
-// count and stride folds to a constant), else read from SirenDims.
+// The fixed-width instances, X(id, layers, in, hidden, out): widths
+// in-hidden-...-hidden-out. Instance 0 is the run-time one. The port's
+// recombiner_tpu_torch/ops/fused_inr.py::FIXED_WIDTHS lists the same table;
+// the C entry points refuse a launch whose instance is not this table's.
+#define SIREN_FIXED_INSTANCES(X) \
+  X(1, 4, 32, 32, 3) /* CIFAR, Kodak, kodak_mini, protein */ \
+  X(2, 4, 32, 32, 1) /* audio, audio_mini */ \
+  X(3, 4, 34, 32, 3) /* video */
+
+// One instance's widths: template constants when IN0 > 0, else read from
+// SirenDims (L, IN0, HID, OUT = SIREN_MAX_LAYERS, 0, 0, 0). NT and MT: the
+// 8- and 16-unit blocks of its widest layer, the fragment arrays' sizes.
 template <int L, int IN0, int HID, int OUT>
-struct Widths {
+struct Instance {
+  static constexpr bool fixed = IN0 > 0;
+  static constexpr int layers = L;
+  static constexpr int max_width =
+      !fixed ? SIREN_MAX_WIDTH
+             : (IN0 > HID ? (IN0 > OUT ? IN0 : OUT) : (HID > OUT ? HID : OUT));
+  static constexpr int NT = round8(max_width) / 8;
+  static constexpr int MT = round16(max_width) / 16;
   SirenDims rt;
-  __device__ __forceinline__ int layers() const { return IN0 ? L : rt.n_layers; }
+  __device__ __forceinline__ int n_layers() const { return fixed ? L : rt.n_layers; }
   __device__ __forceinline__ int operator[](int l) const {
-    return IN0 ? (l == 0 ? IN0 : l == L ? OUT : HID) : rt.d[l];
+    return fixed ? (l == 0 ? IN0 : l == L ? OUT : HID) : rt.d[l];
   }
 };
+using RuntimeInstance = Instance<SIREN_MAX_LAYERS, 0, 0, 0>;
 
-// Each kernel has two instances: CIFAR's widths fixed at compile time, and
-// widths read at run time, up to 64 in up to 8 layers. True for CIFAR's.
-static inline bool cifar_widths(const SirenDims& dims) {
-  static const int cifar[5] = {32, 32, 32, 32, 3};
-  bool fixed = dims.n_layers == 4;
-  for (int l = 0; fixed && l <= 4; ++l) fixed = dims.d[l] == cifar[l];
-  return fixed;
+static inline bool widths_are(const SirenDims& dims, int L, int in, int hid, int out) {
+  bool same = dims.n_layers == L && dims.d[0] == in && dims.d[L] == out;
+  for (int l = 1; same && l < L; ++l) same = dims.d[l] == hid;
+  return same;
+}
+
+// The instance these widths take: a fixed one's id, else 0.
+static inline int siren_instance(const SirenDims& dims) {
+#define SIREN_MATCH(id, L, IN0, HID, OUT) \
+  if (widths_are(dims, L, IN0, HID, OUT)) return id;
+  SIREN_FIXED_INSTANCES(SIREN_MATCH)
+#undef SIREN_MATCH
+  return 0;
+}
+
+// f(Instance<...>{}) for instance id `inst`.
+template <class F>
+static auto with_instance(int inst, F&& f) {
+  switch (inst) {
+#define SIREN_CASE(id, L, IN0, HID, OUT) \
+  case id:                              \
+    return f(Instance<L, IN0, HID, OUT>{});
+    SIREN_FIXED_INSTANCES(SIREN_CASE)
+#undef SIREN_CASE
+    default:
+      return f(RuntimeInstance{});
+  }
+}
+
+// Floats per copy for rows of width d at these addresses: 4 (16 bytes), 2
+// (8 bytes, video's 34-wide rows) or 1.
+static inline int row_vec(int d, const void* a, const void* b) {
+  const uintptr_t p = (uintptr_t)a | (uintptr_t)b;
+  return (d % 4 == 0 && p % 16 == 0) ? 4 : (d % 2 == 0 && p % 8 == 0) ? 2 : 1;
 }
 
 // A fragment (split) from an 8-unit block held in C layout: the permutation.
@@ -498,37 +560,52 @@ __device__ __forceinline__ void stage_weights(float* smem, const int* w_off, con
 
 // Copy `rows` pixel rows of width d (contiguous in global memory from src)
 // into shared rows of `stride`, asynchronously, by threads tid, tid +
-// nthreads, ...; rows at or past `valid_rows` are zero-filled. vec4: d is a
-// multiple of 4 and src 16-byte aligned.
-__device__ __forceinline__ void copy_rows_async(float* dst, int stride, const float* src, int d,
-                                                int rows, int valid_rows, bool vec4, int tid,
-                                                int nthreads) {
-  if (vec4) {
-    const int q = d >> 2;
-    for (int c = tid; c < rows * q; c += nthreads) {
-      const int r = c / q, k = c - r * q;
-      const bool ok = r < valid_rows;
-      cp_async16(dst + r * stride + 4 * k, ok ? src + (size_t)r * d + 4 * k : src, ok);
-    }
-  } else {
-    for (int c = tid; c < rows * d; c += nthreads) {
-      const int r = c / d, k = c - r * d;
-      const bool ok = r < valid_rows;
-      cp_async4(dst + r * stride + k, ok ? src + c : src, ok);
-    }
+// nthreads, ...; rows at or past `valid_rows` are zero-filled. vec: floats
+// per copy (row_vec), dividing d and stride, src aligned to it.
+template <int V>
+__device__ __forceinline__ void copy_rows_vec(float* dst, int stride, const float* src, int d,
+                                              int rows, int valid_rows, int tid, int nthreads) {
+  const int q = d / V;
+  for (int c = tid; c < rows * q; c += nthreads) {
+    const int r = c / q, k = c - r * q;
+    const bool ok = r < valid_rows;
+    const float* from = ok ? src + (size_t)r * d + V * k : src;
+    if constexpr (V == 4)
+      cp_async16(dst + r * stride + 4 * k, from, ok);
+    else if constexpr (V == 2)
+      cp_async8(dst + r * stride + 2 * k, from, ok);
+    else
+      cp_async4(dst + r * stride + k, from, ok);
   }
+}
+__device__ __forceinline__ void copy_rows_async(float* dst, int stride, const float* src, int d,
+                                                int rows, int valid_rows, int vec, int tid,
+                                                int nthreads) {
+  if (vec == 4)
+    copy_rows_vec<4>(dst, stride, src, d, rows, valid_rows, tid, nthreads);
+  else if (vec == 2)
+    copy_rows_vec<2>(dst, stride, src, d, rows, valid_rows, tid, nthreads);
+  else
+    copy_rows_vec<1>(dst, stride, src, d, rows, valid_rows, tid, nthreads);
 }
 
 // Store `rows` shared rows of `stride` (first d floats each) to contiguous
-// global memory at dst, coalesced; vec4 as above for dst.
+// global memory at dst, coalesced; vec as above for dst.
 __device__ __forceinline__ void store_rows(float* dst, const float* src, int stride, int d,
-                                           int rows, bool vec4, int tid, int nthreads) {
-  if (vec4) {
+                                           int rows, int vec, int tid, int nthreads) {
+  if (vec == 4) {
     const int q = d >> 2;
     for (int c = tid; c < rows * q; c += nthreads) {
       const int r = c / q, k = c - r * q;
       reinterpret_cast<float4*>(dst)[c] =
           *reinterpret_cast<const float4*>(src + r * stride + 4 * k);
+    }
+  } else if (vec == 2) {
+    const int q = d >> 1;
+    for (int c = tid; c < rows * q; c += nthreads) {
+      const int r = c / q, k = c - r * q;
+      reinterpret_cast<float2*>(dst)[c] =
+          *reinterpret_cast<const float2*>(src + r * stride + 2 * k);
     }
   } else {
     for (int c = tid; c < rows * d; c += nthreads) {

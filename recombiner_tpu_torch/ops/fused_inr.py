@@ -11,6 +11,13 @@ chip, dW/db summed over pixel tiles in a fixed order), wired into autograd by
 every layer product on the tensor cores as a 3xTF32 split, close to f32
 accuracy (``ops/csrc/siren_mma.cuh``).
 
+Each kernel is compiled once per width set that a modality config runs
+(``FIXED_WIDTHS``: CIFAR's, audio's and video's), every width a constant,
+and once for widths read at run time (up to 64 in up to 8 layers: the TINY
+configs and any other widths). ``instance`` picks one; the wrappers pass it
+to the C entry points, which refuse a launch that names another than their
+own table's.
+
 Bound on the H100 at f32 accuracy: at CIFAR decode (B = 500, P = 1024) the
 forward moves 78 MB (0.023 ms at 3.35 TB/s) for 3.24 GFLOP (0.020 ms as
 3xTF32 at 495 TFLOP/s): bytes. The backward at CIFAR encode (B = 2,500) does
@@ -40,6 +47,14 @@ from recombiner_tpu_torch.ops import _build
 
 MAX_WIDTH = 64  # SIREN_MAX_WIDTH in csrc/siren_mma.cuh
 MAX_LAYERS = 8  # SIREN_MAX_LAYERS
+# The fixed-width instances of both kernels, in the order of
+# csrc/siren_mma.cuh's SIREN_FIXED_INSTANCES: FIXED_WIDTHS[i] is instance i + 1.
+FIXED_WIDTHS = (
+    (32, 32, 32, 32, 3),  # CIFAR, Kodak, kodak_mini, protein
+    (32, 32, 32, 32, 1),  # audio, audio_mini
+    (34, 32, 32, 32, 3),  # video
+)
+RUNTIME_INSTANCE = 0
 
 # Launches of each CUDA kernel, counted where it is launched and nowhere else.
 launches = {"siren_fwd": 0, "siren_bwd": 0}
@@ -47,6 +62,18 @@ launches = {"siren_fwd": 0, "siren_bwd": 0}
 
 def theta_size(dims: Sequence[int]) -> int:
     return sum(dims[i + 1] * (dims[i] + 1) for i in range(len(dims) - 1))
+
+
+def instance(dims: Sequence[int]) -> int:
+    """The kernel instance these widths take: 1 + their index in
+    ``FIXED_WIDTHS``, or ``RUNTIME_INSTANCE``."""
+    dims = tuple(int(d) for d in dims)
+    return FIXED_WIDTHS.index(dims) + 1 if dims in FIXED_WIDTHS else RUNTIME_INSTANCE
+
+
+def instance_name(inst: int) -> str:
+    return ("run-time <=64 x 8" if inst == RUNTIME_INSTANCE
+            else "-".join(map(str, FIXED_WIDTHS[inst - 1])))
 
 
 def siren_forward_reference(x: torch.Tensor, theta: torch.Tensor, dims: Sequence[int],
@@ -106,7 +133,7 @@ def kernel_lib(name: str, csrc_dir: Optional[str] = None) -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, theta, y
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, P, n_layers
             ctypes.c_void_p, ctypes.c_int, ctypes.c_float,  # dims (host), theta_stride, w0
-            ctypes.c_int, ctypes.c_void_p,  # samples_per_block, stream
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # samples_per_block, instance, stream
         ]
     else:
         fn.argtypes = [
@@ -114,9 +141,38 @@ def kernel_lib(name: str, csrc_dir: Optional[str] = None) -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p,  # dx, dtheta
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, P, n_layers
             ctypes.c_void_p, ctypes.c_int, ctypes.c_float,  # dims (host), theta_stride, w0
-            ctypes.c_void_p,  # stream
+            ctypes.c_int, ctypes.c_void_p,  # instance, stream
         ]
     return lib
+
+
+def launch_plan(name: str, dims: Sequence[int], B: int = 1, P: int = 1,
+                samples_per_block: int = 1, csrc_dir: Optional[str] = None) -> dict:
+    """What the C side of kernel ``name`` (built from ``csrc_dir``, by default
+    the package's sources) plans for these widths on this card: warps and
+    dynamic shared memory per block, resident blocks per SM and the
+    instance; for siren_fwd also the pixels per block and the blocks of a
+    launch of B samples of P pixels; for siren_bwd whether the dW
+    accumulator is in shared memory."""
+    fn = getattr(_build.load(name, csrc_dir), f"{name}_plan")
+    fn.restype = ctypes.c_int
+    dims_c = ctypes.cast((ctypes.c_int * len(dims))(*[int(d) for d in dims]), ctypes.c_void_p)
+    out = (ctypes.c_int * 6)()
+    if name == "siren_fwd":
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        rc = fn(len(dims) - 1, dims_c, B, P, samples_per_block, ctypes.cast(out, ctypes.c_void_p))
+    else:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        rc = fn(len(dims) - 1, dims_c, ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"{name}_plan failed: cudaError {rc}")
+    plan = {"warps_per_block": out[0], "smem_bytes_per_block": out[1], "blocks_per_sm": out[2]}
+    if name == "siren_fwd":
+        plan.update(instance=out[3], pixels_per_block=out[4], blocks=out[5])
+    else:
+        plan.update(instance=out[4], dw_acc_in_smem=bool(out[3]))
+    return plan
 
 
 def _check(x: torch.Tensor, theta: torch.Tensor, dims: List[int]) -> None:
@@ -162,7 +218,7 @@ def siren_forward(x: torch.Tensor, theta: torch.Tensor, dims: Sequence[int], w0:
         rc = kernel_lib("siren_fwd").siren_fwd(
             x.data_ptr(), theta.data_ptr(), y.data_ptr(), B, P, len(dims) - 1,
             ctypes.cast(dims_c, ctypes.c_void_p), theta.shape[1], float(w0),
-            int(samples_per_block), stream,
+            int(samples_per_block), instance(dims), stream,
         )
     if rc != 0:
         raise RuntimeError(f"siren_fwd launch failed: cudaError {rc}")
@@ -196,7 +252,7 @@ def siren_backward(x: torch.Tensor, theta: torch.Tensor, dy: torch.Tensor,
         rc = kernel_lib("siren_bwd").siren_bwd(
             x.data_ptr(), theta.data_ptr(), dy.data_ptr(), dx.data_ptr(), dtheta.data_ptr(),
             B, P, len(dims) - 1, ctypes.cast(dims_c, ctypes.c_void_p), theta.shape[1],
-            float(w0), stream,
+            float(w0), instance(dims), stream,
         )
     if rc != 0:
         raise RuntimeError(f"siren_bwd launch failed: cudaError {rc}")

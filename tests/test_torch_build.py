@@ -115,3 +115,18 @@ def test_sources_from_another_directory_share_or_get_their_own_library(fresh_bui
     assert built[srcs[0]].path == built[srcs[1]].path != built[srcs[2]].path
     assert _build.build_all(["siren_fwd"], str(edited))["siren_fwd"] is built[srcs[2]]
     assert len(calls.read_text().split()) == 2  # nothing rebuilt
+
+
+def test_the_build_log_is_kept_beside_the_library(fresh_build, monkeypatch):
+    """nvcc's log (ptxas' registers and spills) is written beside the
+    library and read back when a later process finds the library built."""
+    _fake_nvcc(fresh_build / "cuda" / "bin",
+               'echo "ptxas info    : Used 121 registers"\n'
+               'prev=""; for a; do [ "$prev" = "-o" ] && touch "$a"; prev=$a; done\n')
+    monkeypatch.setenv("CUDA_HOME", str(fresh_build / "cuda"))
+    built = _build.build("siren_bwd")
+    assert "Used 121 registers" in built.log and built.seconds > 0
+    assert open(f"{built.path}.log").read() == built.log
+    monkeypatch.setattr(_build, "_built", {})  # a new process: the library is on disk
+    again = _build.build("siren_bwd")
+    assert (again.path, again.seconds, again.log) == (built.path, 0.0, built.log)

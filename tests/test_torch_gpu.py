@@ -68,10 +68,12 @@ def test_kernel_matches_plain_version(cuda, name, B, P, spb):
     torch.testing.assert_close(got, want, **TOL)
 
 
-@pytest.mark.parametrize("dims", [[64, 64, 40, 7], [34, 32, 32, 32, 3], [5, 7, 3]])
+@pytest.mark.parametrize("dims", [[64, 64, 40, 7], [34, 32, 32, 32, 3], [5, 7, 3], [34, 8, 8, 3]])
 def test_kernel_takes_widths_up_to_64(cuda, dims):
     """Widths up to 64, and widths that are not multiples of 8 (video's
-    34-wide input, [5, 7, 3]), which the kernel pads to tensor-core tiles."""
+    34-wide input on its fixed instance, TINY_VIDEO's on the run-time one,
+    [5, 7, 3]), which the kernel pads to tensor-core tiles."""
+    assert fused_inr.launch_plan("siren_fwd", dims)["instance"] == fused_inr.instance(dims)
     B, P = 4, 300
     x = torch.randn(B, P, dims[0], device=cuda)
     theta = 0.05 * torch.randn(B, fused_inr.theta_size(dims), device=cuda)
@@ -130,8 +132,12 @@ def test_backward_kernel_matches_plain_version(cuda, name, B, P):
 
 
 @pytest.mark.parametrize("dims", [[64, 64, 40, 7], [3, 64, 64, 64, 64, 64, 64, 64, 1],
-                                  [5, 7, 3]])
+                                  [5, 7, 3], [34, 8, 8, 3], [44, 20, 3]])
 def test_backward_kernel_takes_widths_up_to_64_and_8_layers(cuda, dims):
+    """The run-time instance, which every width set outside the fixed table
+    takes: widths up to 64 in up to 8 layers, 34- and 44-wide inputs whose
+    last 16-row block of dW_0 is half or wholly past the width."""
+    assert fused_inr.launch_plan("siren_bwd", dims)["instance"] == fused_inr.RUNTIME_INSTANCE
     B, P = 3, 300
     g = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn(B, P, dims[0], generator=g, device=cuda)
@@ -349,17 +355,26 @@ def test_snapshot_written_on_card_loads_on_cpu(cuda, tmp_path):
     assert np.array_equal(leaves[1], opt.mu[0].cpu().numpy()) and int(leaves[0]) == 3
 
 
-@pytest.mark.parametrize("name,B", [("video", 320), ("video", 2), ("audio", 300), ("audio", 2)])
+@pytest.mark.parametrize("name,B", [("video", 320), ("video", 64), ("video", 2), ("audio", 300),
+                                    ("audio", 60), ("audio", 2)])
 def test_backward_kernel_at_the_other_modalities_shapes(cuda, name, B):
     """An S = 5 epoch of one video clip launches B = 320 samples of widths
-    34-32-32-32-3 at P = 6,144; one audio clip B = 300 of 32-32-32-32-1 at
-    P = 800: the run-time-width instance with the scalar copies of the
-    34-wide input and the 1-wide output, over 24 and 4 pixel tiles; two
-    launches bitwise equal."""
+    34-32-32-32-3 at P = 6,144 (its decode B = 64); one audio clip B = 300
+    of 32-32-32-32-1 at P = 800 (its decode B = 60): each on its own
+    fixed-width instance of both kernels (video's 34-wide rows as 8-byte
+    copies, audio's 1-wide output as scalars); siren_bwd over 24 and 4
+    pixel tiles, two launches bitwise equal; siren_fwd at the same shapes."""
     from recombiner_tpu_torch.config import AUDIO, VIDEO
 
     cfg = {"video": VIDEO, "audio": AUDIO}[name]
+    want_inst = fused_inr.FIXED_WIDTHS.index(tuple(cfg.net_dims)) + 1
+    assert fused_inr.instance(cfg.net_dims) == want_inst
+    for kernel in ("siren_fwd", "siren_bwd"):
+        assert fused_inr.launch_plan(kernel, cfg.net_dims, B, cfg.n_pixels)["instance"] == want_inst
     x, theta = _inputs(cfg, B, cfg.n_pixels, cuda)
+    y = fused_inr.siren_forward(x, theta, cfg.net_dims, cfg.w0)
+    torch.testing.assert_close(y, fused_inr.siren_forward_reference(x, theta, cfg.net_dims,
+                                                                    cfg.w0), **TOL)
     dy = torch.randn(B, cfg.n_pixels, cfg.output_dim, device=cuda)
     dx, dtheta = fused_inr.siren_backward(x, theta, dy, cfg.net_dims, cfg.w0)
     again = fused_inr.siren_backward(x, theta, dy, cfg.net_dims, cfg.w0)
@@ -367,6 +382,46 @@ def test_backward_kernel_at_the_other_modalities_shapes(cuda, name, B):
     want_dx, want_dtheta = fused_inr.siren_backward_reference(x, theta, dy, cfg.net_dims, cfg.w0)
     _assert_close_of_max(dx, want_dx, "dx")
     _assert_close_of_max(dtheta, want_dtheta, "dtheta")
+
+
+def test_forward_spreads_a_small_launch_over_the_card(cuda):
+    """Audio's decode (B = 60 samples of P = 800) would be 60 blocks of 800
+    pixels on the card's 132 SMs: siren_fwd cuts each sample into chunks of
+    whole 64-pixel steps so that its blocks fill one wave of resident
+    slots; CIFAR's B = 500 keeps one block a sample."""
+    from recombiner_tpu_torch.config import AUDIO
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = fused_inr.launch_plan("siren_fwd", AUDIO.net_dims, 60, AUDIO.n_pixels)
+    assert plan["pixels_per_block"] % 64 == 0 and plan["pixels_per_block"] < AUDIO.n_pixels
+    assert 60 < plan["blocks"] <= sms * plan["blocks_per_sm"]
+    cifar = fused_inr.launch_plan("siren_fwd", CIFAR.net_dims, 500, CIFAR.n_pixels)
+    assert (cifar["pixels_per_block"], cifar["blocks"]) == (1024, 500)
+
+
+@pytest.mark.parametrize("kernel", ["siren_fwd", "siren_bwd"])
+def test_kernels_refuse_a_launch_that_names_another_instance(cuda, kernel):
+    """The C entry points check the instance the wrapper names against their
+    own table and launch nothing when they differ (cudaErrorInvalidValue)."""
+    import ctypes
+
+    dims = list(CIFAR.net_dims)
+    x, theta = _inputs(CIFAR, 2, 64, cuda)
+    dims_c = ctypes.cast((ctypes.c_int * 5)(*dims), ctypes.c_void_p)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = getattr(fused_inr.kernel_lib(kernel), kernel)
+    y = torch.full((2, 64, 3), 7.0, device=cuda)
+    for inst in (0, 2, 3):
+        if kernel == "siren_fwd":
+            rc = fn(x.data_ptr(), theta.data_ptr(), y.data_ptr(), 2, 64, 4, dims_c,
+                    theta.shape[1], 30.0, 1, inst, stream)
+        else:
+            dy, dx, dt = torch.zeros_like(y), torch.empty_like(x), torch.empty_like(theta)
+            rc = fn(x.data_ptr(), theta.data_ptr(), dy.data_ptr(), dx.data_ptr(), dt.data_ptr(),
+                    2, 64, 4, dims_c, theta.shape[1], 30.0, inst, stream)
+        assert rc != 0, inst
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all())
 
 
 @pytest.mark.parametrize("factors,canvas", [(((6, 4, 4), 2, 2), (2, 1, 8, 8)),

@@ -5,19 +5,25 @@ The port's plain ``inr_forward`` and its kernel module (``fused_mlp`` /
 are held to JAX's einsum ``inr_forward`` and to both Pallas kernels,
 ``ops/fused_inr.py`` and ``ops/pallas_inr.py``, run in interpret mode.
 Tolerance atol 3e-5, rtol 1e-5, as tests/test_pallas_inr.py: f32 sums in a
-different order, amplified by w0 = 30 through the sin layers.
+different order, amplified by w0 = 30 through the sin layers. The cases
+cover the widths of every kernel instance: CIFAR's, audio's (32-32-32-32-1)
+and video's (34-32-32-32-3) fixed ones, TINY's on the run-time one; and
+which instance each config takes is pinned against the C sources' table.
 """
+
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from recombiner_tpu.config import CIFAR, TINY
+from recombiner_tpu.config import AUDIO, CIFAR, TINY, VIDEO
 from recombiner_tpu.models.inr import inr_forward as jax_inr_forward
 from recombiner_tpu.ops import fused_inr as jax_fused
 from recombiner_tpu.ops import pallas_inr as jax_pallas
-from recombiner_tpu_torch.config import get_config
+from recombiner_tpu_torch.config import CONFIGS, get_config
 from recombiner_tpu_torch.models.inr import inr_forward
 from recombiner_tpu_torch.ops import fused_inr
 
@@ -41,6 +47,8 @@ CASES = {
     "tiny": (TINY, 4, 1, 256, 128),
     "cifar": (CIFAR, 2, 2, 1024, 256),
     "odd_p_b3": (TINY, 3, 1, 250, 250),
+    "audio": (AUDIO, 2, 2, 160, 80),
+    "video": (VIDEO, 2, 1, 192, 64),
 }
 
 
@@ -112,3 +120,35 @@ def test_wrapper_rejects_bad_inputs(bad):
         theta = theta.to("meta")
     with pytest.raises(err):
         fused_inr.siren_forward(x, theta, dims, cfg.w0)
+
+
+def _c_instance_table():
+    """SIREN_FIXED_INSTANCES of csrc/siren_mma.cuh as width tuples, by id."""
+    path = os.path.join(os.path.dirname(fused_inr.__file__), "csrc", "siren_mma.cuh")
+    with open(path) as f:
+        rows = re.findall(r"^  X\((\d+), (\d+), (\d+), (\d+), (\d+)\)", f.read(), re.M)
+    return {int(i): (int(a),) + (int(h),) * (int(L) - 1) + (int(o),) for i, L, a, h, o in rows}
+
+
+def test_instance_table_is_the_c_sources_table():
+    """The wrappers name an instance that the C entry points check against
+    their own table; both tables list the same widths under the same ids."""
+    c_table = _c_instance_table()
+    assert c_table == {i + 1: w for i, w in enumerate(fused_inr.FIXED_WIDTHS)}
+    assert fused_inr.RUNTIME_INSTANCE not in c_table
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_each_config_takes_its_kernel_instance(name):
+    """Every full-size modality runs on a fixed-width instance of both
+    kernels (CIFAR, Kodak, kodak_mini and protein on CIFAR's; audio and
+    audio_mini on audio's; video on video's); the TINY configs on the
+    run-time one."""
+    dims = tuple(get_config(name).net_dims)
+    inst = fused_inr.instance(dims)
+    if name.startswith("tiny"):
+        assert inst == fused_inr.RUNTIME_INSTANCE
+    else:
+        assert inst != fused_inr.RUNTIME_INSTANCE and _c_instance_table()[inst] == dims
+        want = {"audio": 2, "audio_mini": 2, "video": 3}.get(name, 1)
+        assert inst == want

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from recombiner_tpu.config import CIFAR, TINY
+from recombiner_tpu.config import AUDIO, CIFAR, TINY, VIDEO
 from recombiner_tpu.models.inr import inr_forward as jax_inr_forward
 from recombiner_tpu.ops import fused_inr as jax_fused
 from recombiner_tpu_torch.config import get_config
@@ -51,6 +51,9 @@ CASES = {
     "tiny": (TINY, 2, 3, None),
     "cifar": (CIFAR, 2, 2, None),
     "odd_p": (TINY, 3, 1, (10, 25)),  # P = 250, a multiple of no tile
+    # audio's and video's widths (their kernel instances), at a small P
+    "audio": (AUDIO, 2, 2, (160,)),
+    "video": (VIDEO, 2, 1, (2, 8, 12)),
 }
 
 
